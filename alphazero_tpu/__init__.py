@@ -1,4 +1,4 @@
-"""alphazero_tpu — a TPU-native AlphaZero framework.
+"""alphazero_tpu — an accelerator-native AlphaZero framework in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of the Rust reference
 ``AnimatedRNG/alphazero-rs`` (see SURVEY.md). Instead of the reference's

@@ -40,18 +40,6 @@ class MCTSConfig:
     dirichlet_alpha: Optional[float] = None  # root noise; the reference has
     #                              none — optional extension, default off.
     dirichlet_frac: float = 0.25
-    parallel_sims: int = 1       # K leaf-parallel descents per search round
-    #                              — the lockstep analogue of the reference's
-    #                              num_sim_threads + virtual loss
-    #                              (async_mcts.rs:191-217, node.rs:77-92).
-    #                              K=1 is exact sequential MCTS (the golden
-    #                              config); K>1 amortizes the per-simulation
-    #                              score/merge passes over K expansions for
-    #                              ~2x+ throughput at a small search-quality
-    #                              cost (contended nodes rotate between their
-    #                              top-2 PUCT actions within a round).
-    #                              num_sims must be divisible by K.
-
     forced_playouts: Optional[float] = None  # opt-in KataGo forced
     #                              playouts + policy target pruning (Wu
     #                              2020 §3.2; no reference analogue): at
@@ -64,8 +52,6 @@ class MCTSConfig:
     #                              visits back out (tree.pruned_root_counts)
     #                              so the targets aren't polluted by the
     #                              forcing. Pair with dirichlet_alpha.
-    #                              Runs on the XLA engine (selfplay
-    #                              routes there automatically).
 
     transposition: bool = False  # opt-in transposition-DAG dedup (the
     #                              reference's `seen` table, node.rs:135 /
@@ -105,10 +91,9 @@ class MCTSConfig:
     #                              after each move the played child's
     #                              subtree is re-rooted (mcts/reuse.py) and
     #                              the next search continues from its
-    #                              cumulative statistics. XLA engine only
-    #                              (the VMEM-resident kernels hold exactly
-    #                              one search's tree). Pair with max_nodes
-    #                              ~ 2*num_sims so carried subtrees fit.
+    #                              cumulative statistics. Pair with
+    #                              max_nodes ~ 2*num_sims so carried
+    #                              subtrees fit.
 
     @property
     def nodes(self) -> int:
@@ -247,7 +232,7 @@ class ArenaConfig:
     #                              virtual-draw regularizer. Dense passes
     #                              across the steep early iterations give
     #                              the gauge an informative chain
-    #                              (measured + simulated: docs/ROUND5.md).
+    #                              (measured and simulated).
     anchor_warmup_mult: int = 1  # during warmup iterations, repeat the
     #                              anchor arena this many times (the
     #                              gen-1-vs-anchor edge sits on EVERY path
@@ -259,7 +244,7 @@ class ArenaConfig:
     #                              at flagship strength the incumbent-vs-
     #                              anchor edge is a blowout carrying ~no
     #                              Fisher information — SE grew to
-    #                              ±204-330 Elo (round-4 VERDICT item 4).
+    #                              ±204-330 Elo.
     #                              Each cross match picks the pool pair
     #                              with the fewest recorded games (ties:
     #                              closest fitted ratings — near-50%

@@ -1,6 +1,6 @@
 // Native example store — host-side training-sample archive.
 //
-// The TPU-native equivalent of the reference's replay-history persistence:
+// The accelerator-side equivalent of the reference's replay-history persistence:
 // bincode-serialized per-iteration sample deques written as
 // "{iteration}.examples" and resumed by numeric stem (reference:
 // src/coach.rs:159-167 save_train_examples + coach.rs:55-81 setup; the

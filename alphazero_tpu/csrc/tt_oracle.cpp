@@ -1,12 +1,12 @@
 // Transposition-table (DAG) MCTS oracle — quantifies the reference's
-// `seen` dedup semantics against the pure tree the TPU engine uses.
+// `seen` dedup semantics against the pure tree the XLA engine uses.
 //
 // The reference's NodeStore keys every state in a concurrent hash map and
 // redirects duplicate expansions to the canonical node
 // (/root/reference/src/node.rs:135 `seen`, node.rs:272-326 upgrade/dedup,
 // async_mcts.rs:293-299 "continue from canonical node") — statistics are
 // per NODE, so transposed paths share visit information and the tree is a
-// DAG. The TPU rebuild deliberately drops this (SURVEY.md §7 hard-parts
+// DAG. The JAX rebuild deliberately drops this (SURVEY.md §7 hard-parts
 // (c); docs/PARITY.md): its trees are pure, stats live on parent edges.
 // SURVEY §7(c) requires QUANTIFYING that trade. This oracle implements
 // BOTH semantics sequentially (node-level statistics; `use_tt` toggles the

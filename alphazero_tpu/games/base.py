@@ -1,6 +1,6 @@
 """The ``Game`` protocol — the environment extension point.
 
-This is the TPU-native re-design of the reference's 9-method ``Game`` trait
+This is the accelerator-native re-design of the reference's 9-method ``Game`` trait
 (reference: src/game.rs:8-28). Differences, by design:
 
 * **States are always canonical**: the player to move always owns the ``+1``

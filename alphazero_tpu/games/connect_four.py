@@ -87,11 +87,12 @@ class ConnectFour:
         top row (callers done-mask such states).
 
         DENSE one-hot arithmetic only — no per-game dynamic gather/scatter.
-        The original ``board[:, action]`` + ``.at[row, action].set(1)``
-        formulation MISCOMPILES on the TPU backend under vmap at large
-        batch (measured: the placement scatter silently dropped for
-        2296/4096 boards at B=4096; correct at B<=512 and on CPU). Guarded
-        by the tpu-gate step-correctness test (tests/test_tpu_gate.py)."""
+        An earlier ``board[:, action]`` + ``.at[row, action].set(1)``
+        formulation was miscompiled by an accelerator backend under vmap
+        at large batch (the placement scatter silently dropped for part of
+        a B=4096 batch; correct at B<=512 and on CPU). Guarded by
+        tests/test_protocol.py::test_vmapped_step_exact_at_batch_4096 and,
+        on a GPU, tests/test_gpu.py."""
         col_mask = jnp.arange(COLS) == action                       # [7]
         heights = jnp.sum(state.board != 0, axis=0)                 # [7]
         row = jnp.minimum(jnp.sum(heights * col_mask), ROWS - 1)
@@ -133,119 +134,3 @@ class ConnectFour:
 
     def eval_heuristic(self, state: ConnectFourState) -> jax.Array:
         return jnp.float32(0.0)  # connect_four_game.rs:214-216
-
-    def flat_ops(self) -> "FlatOps":
-        """Flat-board dynamics for the VMEM-resident fused search kernel
-        (mcts/fused.py). See ``FlatOps``."""
-        return FlatOps()
-
-
-def _win_line_matrix() -> jnp.ndarray:
-    """f32[42, 69] incidence matrix of the 69 four-in-a-row windows.
-
-    Column j holds 1s at the four flat cells (row-major ``r*COLS + c``) of
-    window j; ``(board == player) @ M == 4`` detects a win as one small MXU
-    matmul — the kernel-friendly form of ``_has_win``'s shifted ANDs (same
-    inclusive window bounds, i.e. defect D11 stays fixed)."""
-    import numpy as np
-
-    lines = []
-    for r in range(ROWS):
-        for c in range(COLS - WIN + 1):
-            lines.append([(r, c + i) for i in range(WIN)])
-    for c in range(COLS):
-        for r in range(ROWS - WIN + 1):
-            lines.append([(r + i, c) for i in range(WIN)])
-    for r in range(ROWS - WIN + 1):
-        for c in range(COLS - WIN + 1):
-            lines.append([(r + i, c + i) for i in range(WIN)])
-    for r in range(WIN - 1, ROWS):
-        for c in range(COLS - WIN + 1):
-            lines.append([(r - i, c + i) for i in range(WIN)])
-    m = np.zeros((ROWS * COLS, len(lines)), np.float32)
-    for j, cells in enumerate(lines):
-        for r, c in cells:
-            m[r * COLS + c, j] = 1.0
-    return jnp.asarray(m)
-
-
-class FlatOps:
-    """Connect-Four dynamics on FLAT batched boards ``f32[Bb, 42]``.
-
-    The fused search kernel (mcts/fused.py) keeps game states as flat
-    lane vectors in VMEM and needs batched, gather-free, fixed-shape
-    versions of step/valid/terminal. Layout is row-major ``r*COLS + c``
-    so row 5 (the top) occupies lanes 35..41. Semantics match the
-    ``ConnectFour`` methods above exactly (canonical board: the player
-    to move holds +1; ``step`` drops a +1 and sign-flips).
-
-    Per-game scalars use the 2D keepdims convention ``[Bb, 1]`` — inside
-    a Mosaic kernel 1D vectors hit unimplemented layout paths, while the
-    row-broadcast of a single-lane column is the native pattern."""
-
-    size = ROWS * COLS
-    num_actions = COLS
-    # aux-plane matmul operand shape [size, aux_lanes]
-    aux_lanes = 128
-
-    def aux(self) -> jax.Array:
-        """Constant operand shipped to the kernel: the win-line matrix,
-        zero-padded to 128 lanes (padding columns sum to 0 < 4)."""
-        m = _win_line_matrix()
-        return jnp.pad(m, ((0, 0), (0, self.aux_lanes - m.shape[1])))
-
-    def from_state(self, state: ConnectFourState) -> jax.Array:
-        """Batched state pytree -> f32[B, 42] flat boards."""
-        return state.board.reshape(state.board.shape[0], -1).astype(jnp.float32)
-
-    def step(self, board: jax.Array, action: jax.Array) -> jax.Array:
-        """step() on flat boards (action exact-int f32[Bb, 1]): drop +1 in
-        the action's column (clamped to the top cell when full, like
-        ``ConnectFour.step``), sign-flip. All-f32 arithmetic: the caller is
-        a Mosaic kernel where small-int vector layouts are fragile."""
-        Bb = board.shape[0]
-        lane = jax.lax.broadcasted_iota(jnp.int32, (Bb, self.size), 1)
-        lane_f = lane.astype(jnp.float32)
-        col_f = (lane % COLS).astype(jnp.float32)
-        in_col = (col_f == action).astype(jnp.float32)
-        h = jnp.sum(
-            in_col * (board != 0).astype(jnp.float32), axis=1, keepdims=True
-        )
-        target = jnp.minimum(h, ROWS - 1) * COLS + action
-        hit = (lane_f == target).astype(jnp.float32)
-        dropped = board + hit * (1.0 - board)
-        return -dropped
-
-    def valid(self, board: jax.Array) -> jax.Array:
-        """bool[Bb, 7]: top cell of each column empty."""
-        return board[:, (ROWS - 1) * COLS :] == 0
-
-    def to_features(self, board: jax.Array) -> jax.Array:
-        """f32[B, 42] flat boards -> NHWC [B, 6, 7, 2] NN features; same
-        values as ``ConnectFour.to_features`` (used by the hybrid search,
-        mcts/hybrid.py, to evaluate leaf boards carried by the descent)."""
-        b = board.reshape(board.shape[0], ROWS, COLS)
-        return jnp.stack(
-            [(b == 1).astype(jnp.float32), (b == -1).astype(jnp.float32)],
-            axis=-1,
-        )
-
-    def terminal(self, board: jax.Array, aux: jax.Array):
-        """(done bool[Bb, 1], value f32[Bb, 1]) — ``ConnectFour.terminal``
-        semantics via one win-line matmul per sign."""
-        pos = jnp.dot(
-            (board == 1).astype(jnp.float32), aux,
-            preferred_element_type=jnp.float32,
-        )
-        neg = jnp.dot(
-            (board == -1).astype(jnp.float32), aux,
-            preferred_element_type=jnp.float32,
-        )
-        win = jnp.any(pos >= WIN - 0.5, axis=1, keepdims=True)
-        lose = jnp.any(neg >= WIN - 0.5, axis=1, keepdims=True)
-        full = jnp.all(
-            board[:, (ROWS - 1) * COLS :] != 0, axis=1, keepdims=True
-        )
-        done = win | lose | full
-        value = jnp.where(win, 1.0, jnp.where(lose, -1.0, 0.0))
-        return done, value

@@ -4,9 +4,8 @@ Third ``Game`` implementation — beyond the reference's scope (its only
 game is Connect-Four, reference: examples/connect_four_lib/
 connect_four_game.rs; the trait it fills is src/game.rs:8-28). Gomoku
 exercises a corner neither other game does: a LARGE action space with
-free placement and a zero depth-cutoff heuristic — the combination
-that routes self-play through the hybrid engine's dense-refresh path
-(mcts/hybrid.py) with none of Othello's flip machinery.
+free placement and a zero depth-cutoff heuristic, with none of
+Othello's flip machinery.
 
 The board edge is a constructor parameter: ``Gomoku()`` is the 9x9
 edition the round-1..4 goldens pin; ``Gomoku(15)`` is the production
@@ -83,8 +82,8 @@ class Gomoku:
         flipped board. Total: placing on an occupied cell overwrites it
         with +1 (callers mask illegal actions).
 
-        Dense one-hot write — per-game dynamic scatters miscompile on the
-        TPU backend under vmap at large batch (see ConnectFour.step)."""
+        Dense one-hot write — no per-game dynamic scatter (see
+        ConnectFour.step)."""
         S = self.size
         r, c = action // S, action % S
         hit = (jnp.arange(S)[:, None] == r) & (jnp.arange(S)[None, :] == c)
@@ -130,100 +129,3 @@ class Gomoku:
 
     def eval_heuristic(self, state: GomokuState) -> jax.Array:
         return jnp.float32(0.0)
-
-    def flat_ops(self) -> "GomokuFlatOps":
-        """Flat-board dynamics for the hybrid search engine
-        (mcts/hybrid.py). See ``GomokuFlatOps``."""
-        return GomokuFlatOps(self.size, self.win)
-
-
-def _win_line_matrix(size: int, win: int) -> jnp.ndarray:
-    """f32[size^2, n_lines] incidence matrix of all win-in-a-row windows
-    (9x9: rows 45 + cols 45 + diag 25 + anti 25 = 140; 15x15: 572);
-    ``(board == player) @ M >= win`` detects a win as one matmul."""
-    import numpy as np
-
-    M = size - win + 1
-    lines = []
-    for r in range(size):
-        for c in range(M):
-            lines.append([(r, c + i) for i in range(win)])
-    for c in range(size):
-        for r in range(M):
-            lines.append([(r + i, c) for i in range(win)])
-    for r in range(M):
-        for c in range(M):
-            lines.append([(r + i, c + i) for i in range(win)])
-    for r in range(win - 1, size):
-        for c in range(M):
-            lines.append([(r - i, c + i) for i in range(win)])
-    m = np.zeros((size * size, len(lines)), np.float32)
-    for j, cells in enumerate(lines):
-        for r, c in cells:
-            m[r * size + c, j] = 1.0
-    return jnp.asarray(m)
-
-
-class GomokuFlatOps:
-    """Gomoku dynamics on FLAT batched boards ``f32[Bb, size^2]``.
-
-    ``step`` runs INSIDE the hybrid descend kernel (Mosaic-friendly:
-    all-f32, per-game scalars as keepdims ``[Bb, 1]`` columns, no
-    gathers); ``valid``/``terminal``/``to_features`` run in the engine's
-    XLA stage. Semantics match ``Gomoku`` exactly (asserted in tests)."""
-
-    def __init__(self, size: int = SIZE, win: int = WIN):
-        self.board_size = size
-        self.win = win
-        self.size = size * size
-        self.num_actions = size * size
-        n_lines = 2 * size * (size - win + 1) + 2 * (size - win + 1) ** 2
-        # zero-padded to a lane multiple (padding sums 0 < win)
-        self.aux_lanes = -(-n_lines // 128) * 128
-
-    def aux(self) -> jax.Array:
-        m = _win_line_matrix(self.board_size, self.win)
-        return jnp.pad(m, ((0, 0), (0, self.aux_lanes - m.shape[1])))
-
-    def from_state(self, state: GomokuState) -> jax.Array:
-        return state.board.reshape(state.board.shape[0], -1).astype(jnp.float32)
-
-    def step(self, board: jax.Array, action: jax.Array) -> jax.Array:
-        """Place +1 at the action lane (occupied cells overwrite, like
-        ``Gomoku.step``), sign-flip."""
-        Bb = board.shape[0]
-        lane_f = jax.lax.broadcasted_iota(jnp.int32, (Bb, self.size), 1).astype(
-            jnp.float32
-        )
-        hit = (lane_f == action).astype(jnp.float32)
-        placed = board + hit * (1.0 - board)
-        return -placed
-
-    def valid(self, board: jax.Array) -> jax.Array:
-        return board == 0
-
-    def to_features(self, board: jax.Array) -> jax.Array:
-        S = self.board_size
-        b = board.reshape(board.shape[0], S, S)
-        return jnp.stack(
-            [(b == 1).astype(jnp.float32), (b == -1).astype(jnp.float32)],
-            axis=-1,
-        )
-
-    def terminal(self, board: jax.Array, aux: jax.Array):
-        """(done bool[Bb,1], value f32[Bb,1]) via one win-line matmul per
-        sign (the XLA stage of the hybrid engine)."""
-        pos = jnp.dot(
-            (board == 1).astype(jnp.float32), aux,
-            preferred_element_type=jnp.float32,
-        )
-        neg = jnp.dot(
-            (board == -1).astype(jnp.float32), aux,
-            preferred_element_type=jnp.float32,
-        )
-        win = jnp.any(pos >= self.win - 0.5, axis=1, keepdims=True)
-        lose = jnp.any(neg >= self.win - 0.5, axis=1, keepdims=True)
-        full = jnp.all(board != 0, axis=1, keepdims=True)
-        done = win | lose | full
-        value = jnp.where(win, 1.0, jnp.where(lose, -1.0, 0.0))
-        return done, value

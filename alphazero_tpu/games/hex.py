@@ -56,7 +56,8 @@ def _neighbor_or(x: jax.Array) -> jax.Array:
 def _connects_rows(p: jax.Array) -> jax.Array:
     """True iff the True cells of ``p`` form a chain from row 0 to row
     N-1 (hex adjacency). Iterated dilation to the fixpoint — the
-    TPU-shaped form of the union-find/BFS a CPU implementation would use
+    dense, batch-friendly form of the union-find/BFS a CPU implementation
+    would use
     (dense [S,S] masks, no data-dependent indexing)."""
     reached = p & (jnp.arange(SIZE)[:, None] == 0)
 
@@ -92,8 +93,7 @@ class Hex:
         and TRANSPOSE (see module docstring). Total: occupied cells
         overwrite (callers mask illegal actions).
 
-        Dense one-hot write — per-game dynamic scatters miscompile on
-        the TPU backend under vmap at large batch (see
+        Dense one-hot write — no per-game dynamic scatter (see
         ConnectFour.step)."""
         r, c = action // SIZE, action % SIZE
         hit = (jnp.arange(SIZE)[:, None] == r) & (jnp.arange(SIZE)[None, :] == c)
@@ -135,98 +135,3 @@ class Hex:
 
     def eval_heuristic(self, state: HexState) -> jax.Array:
         return jnp.float32(0.0)
-
-    def flat_ops(self) -> "HexFlatOps":
-        """Flat-board dynamics for the hybrid search engine (mcts/hybrid.py).
-        See ``HexFlatOps`` for the parity-lane trick that makes the
-        negate-AND-TRANSPOSE canonical step Mosaic-safe."""
-        return HexFlatOps()
-
-
-class HexFlatOps:
-    """Hex dynamics on FLAT batched boards ``f32[Bb, 50]``.
-
-    The hybrid engine (mcts/hybrid.py) re-steps boards inside its descend
-    Pallas kernel, so ``step`` must be Mosaic-friendly: dense all-f32
-    arithmetic, no gathers, per-game scalars as keepdims ``[Bb, 1]``
-    columns. Hex's canonical ``step`` negates AND TRANSPOSES the board
-    (module docstring) — and a 7x7 transpose is a 49-lane permutation, a
-    shape Mosaic has no native layout for. The kernel therefore never
-    transposes: lanes 0..48 hold the board in a FIXED spatial frame and
-    lane 49 holds a parity flag p, with the invariant
-
-        stored = T^p(canonical)        (T = transpose, an involution)
-
-    One canonical move (place ``a``, negate, transpose) becomes, in the
-    stored frame,
-
-        stored' = -(place at T^p(a) in stored),   p' = 1 - p
-
-    i.e. the TRANSPOSE MOVES OFF THE BOARD AND ONTO THE ACTION INDEX:
-    ``a -> (a%7)*7 + a//7`` when p is odd — scalar arithmetic on the
-    ``[Bb, 1]`` action column, no data movement at all. The XLA stage
-    (``valid``/``terminal``/``to_features``) reconstructs the canonical
-    board with one transpose-select and vmaps the ``Hex`` game methods,
-    so the data-dependent flood-fill ``while_loop`` never enters Mosaic
-    (same split as ``OthelloFlatOps``). Semantics match ``Hex`` exactly;
-    tests/test_hex.py asserts step-sequence and terminal equivalence and
-    tests/test_hybrid.py asserts bit-exact root visit counts vs the XLA
-    engine."""
-
-    size = SIZE * SIZE + 1  # 49 board lanes + 1 parity lane
-    num_actions = SIZE * SIZE
-
-    def aux(self) -> jax.Array:
-        """No kernel-side constant needed (terminality is resolved in the
-        XLA stage); ship a minimal placeholder plane."""
-        return jnp.zeros((8, 128), jnp.float32)
-
-    def from_state(self, state: HexState) -> jax.Array:
-        """Batched canonical states -> f32[B, 50] stored boards, parity 0."""
-        b = state.board.reshape(state.board.shape[0], -1).astype(jnp.float32)
-        return jnp.pad(b, ((0, 0), (0, 1)))
-
-    def _canonical(self, board: jax.Array) -> HexState:
-        """f32[Bb, 50] stored boards -> batched canonical ``HexState``
-        (undo the parity transpose: canonical = T^p(stored))."""
-        b = board[:, : SIZE * SIZE].reshape(-1, SIZE, SIZE)
-        par = board[:, SIZE * SIZE] > 0.5
-        c = jnp.where(par[:, None, None], jnp.swapaxes(b, 1, 2), b)
-        return HexState(board=c.astype(jnp.int8))
-
-    def valid(self, board: jax.Array) -> jax.Array:
-        """bool[Bb, 49] in canonical action space (XLA stage)."""
-        game = Hex()
-        return jax.vmap(game.valid_moves)(self._canonical(board))
-
-    def terminal(self, board: jax.Array, aux: jax.Array):
-        """(done bool[Bb,1], value f32[Bb,1]) — XLA stage; runs the
-        flood-fill fixpoint of ``Hex.terminal`` outside the kernel."""
-        del aux
-        game = Hex()
-        done, value = jax.vmap(game.terminal)(self._canonical(board))
-        return done[:, None], value[:, None]
-
-    def to_features(self, board: jax.Array) -> jax.Array:
-        game = Hex()
-        return jax.vmap(game.to_features)(self._canonical(board))
-
-    def step(self, board: jax.Array, action: jax.Array) -> jax.Array:
-        """``Hex.step`` on stored boards (action exact-int f32[Bb, 1] in
-        CANONICAL coordinates). Dense f32 arithmetic only — the transpose
-        is an action-index remap gated by the parity lane (class
-        docstring); occupied cells overwrite, like ``Hex.step``."""
-        Bb = board.shape[0]
-        lane = jax.lax.broadcasted_iota(jnp.int32, (Bb, self.size), 1).astype(
-            jnp.float32
-        )
-        is_par = (lane == float(SIZE * SIZE)).astype(jnp.float32)  # [Bb, 50]
-        par = jnp.sum(board * is_par, axis=1, keepdims=True)       # [Bb, 1]
-        r = jnp.floor((action + 0.5) / SIZE)
-        c = action - SIZE * r
-        a_eff = action + par * ((c * SIZE + r) - action)  # T^p(a)
-        hit = (lane == a_eff).astype(jnp.float32)  # lane 49 > any a_eff
-        placed = board + hit * (1.0 - board)
-        negated = -placed
-        # parity lane: don't negate, flip 0 <-> 1
-        return negated + is_par * ((1.0 - par) - negated)

@@ -108,8 +108,7 @@ class Othello:
         with no flips (callers mask such states)."""
         r, c = action // SIZE, action % SIZE
         is_pass = action >= PASS
-        # dense one-hot move mask — per-game dynamic scatters miscompile
-        # on the TPU backend under vmap at large batch (see
+        # dense one-hot move mask — no per-game dynamic scatter (see
         # ConnectFour.step)
         move = (
             (jnp.arange(SIZE)[:, None] == jnp.minimum(r, SIZE - 1))
@@ -161,105 +160,3 @@ class Othello:
     def eval_heuristic(self, state: OthelloState) -> jax.Array:
         """Depth-cutoff estimate: normalized disc differential."""
         return jnp.sum(state.board.astype(jnp.float32)) / (SIZE * SIZE)
-
-    def flat_ops(self) -> "OthelloFlatOps":
-        """Flat-board dynamics for the hybrid search engine (mcts/hybrid.py).
-        See ``OthelloFlatOps``."""
-        return OthelloFlatOps()
-
-
-class OthelloFlatOps:
-    """Othello dynamics on FLAT batched boards ``f32[Bb, 64]``.
-
-    The hybrid search kernel (mcts/hybrid.py) carries game states as flat
-    VMEM lane vectors and re-steps them at each descent level, so ``step``
-    must be Mosaic-friendly: all-f32 arithmetic, no gathers, per-game
-    scalars as keepdims ``[Bb, 1]`` columns. Flip detection walks the 8
-    rays OUTWARD FROM THE MOVE CELL with scalar index arithmetic — each
-    ray cell is read by one lane-compare + reduce, so the whole step is
-    ~8x7 tiny dense passes instead of whole-board shift algebra (the
-    vmapped ``_legal_squares``/``_flip_mask`` above are the XLA-stage
-    form; semantics match ``Othello.step`` exactly, tests assert it).
-
-    ``valid``/``terminal``/``to_features`` run in the engine's XLA stage
-    and simply reshape back to boards; ``heuristic`` (the nonzero
-    depth-cutoff estimate) makes the game eligible for the hybrid engine
-    despite ``heuristic_is_zero`` being False."""
-
-    size = SIZE * SIZE
-    num_actions = PASS + 1
-
-    def aux(self) -> jax.Array:
-        """No kernel-side constant needed (terminality is resolved in the
-        XLA stage); ship a minimal placeholder plane."""
-        return jnp.zeros((8, 128), jnp.float32)
-
-    def from_state(self, state: OthelloState) -> jax.Array:
-        return state.board.reshape(state.board.shape[0], -1).astype(jnp.float32)
-
-    def _to_boards(self, board: jax.Array) -> OthelloState:
-        b = board.reshape(board.shape[0], SIZE, SIZE).astype(jnp.int8)
-        return OthelloState(board=b)
-
-    def valid(self, board: jax.Array) -> jax.Array:
-        """bool[Bb, 65] — legality incl. the pass action (XLA stage)."""
-        game = Othello()
-        return jax.vmap(game.valid_moves)(self._to_boards(board))
-
-    def terminal(self, board: jax.Array, aux: jax.Array):
-        """(done bool[Bb,1], value f32[Bb,1]) — XLA stage."""
-        del aux
-        game = Othello()
-        done, value = jax.vmap(game.terminal)(self._to_boards(board))
-        return done[:, None], value[:, None]
-
-    def to_features(self, board: jax.Array) -> jax.Array:
-        b = board.reshape(board.shape[0], SIZE, SIZE)
-        return jnp.stack(
-            [(b == 1).astype(jnp.float32), (b == -1).astype(jnp.float32)],
-            axis=-1,
-        )
-
-    def heuristic(self, board: jax.Array) -> jax.Array:
-        """f32[Bb, 1] disc differential — ``Othello.eval_heuristic`` on
-        flat boards (the hybrid's depth-cutoff leaf value)."""
-        return jnp.sum(board, axis=1, keepdims=True) / (SIZE * SIZE)
-
-    def step(self, board: jax.Array, action: jax.Array) -> jax.Array:
-        """``Othello.step`` on flat boards (action exact-int f32[Bb, 1];
-        64 = pass). Walks the 8 rays from the move cell with scalar index
-        arithmetic; an illegal placement degenerates to a plain stone drop
-        with no flips (callers mask such states), exactly like the 2D
-        version."""
-        Bb = board.shape[0]
-        lane = jax.lax.broadcasted_iota(jnp.int32, (Bb, self.size), 1).astype(
-            jnp.float32
-        )
-        is_pass = (action >= PASS - 0.5).astype(jnp.float32)   # [Bb, 1]
-        place = 1.0 - is_pass
-        a = jnp.minimum(action, float(PASS - 1))
-        r0 = jnp.floor((a + 0.5) / SIZE)
-        c0 = a - SIZE * r0
-        move_oh = (lane == a).astype(jnp.float32) * place      # [Bb, 64]
-
-        flips = jnp.zeros_like(board)
-        for dr, dc in _DIRS:
-            run_ok = place                                     # [Bb, 1]
-            chain = jnp.zeros_like(board)
-            for k in range(1, SIZE):
-                r = r0 + k * dr
-                c = c0 + k * dc
-                inb = (
-                    (r >= -0.5) & (r <= SIZE - 0.5) & (c >= -0.5) & (c <= SIZE - 0.5)
-                ).astype(jnp.float32)
-                oh = (lane == r * SIZE + c).astype(jnp.float32) * inb
-                cell = jnp.sum(board * oh, axis=1, keepdims=True)
-                is_opp = (cell < -0.5).astype(jnp.float32)
-                is_own = (cell > 0.5).astype(jnp.float32)
-                flips = flips + (run_ok * is_own) * chain
-                chain = chain + (run_ok * is_opp) * oh
-                run_ok = run_ok * is_opp
-        # a cell lies on exactly one ray from the move, so flips is 0/1
-        b1 = board * (1.0 - flips) + flips      # flipped discs become +1
-        b1 = b1 * (1.0 - move_oh) + move_oh     # place the stone
-        return -b1

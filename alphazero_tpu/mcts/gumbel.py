@@ -133,11 +133,6 @@ def make_gumbel_search_fn(game, apply_fn: ApplyFn, cfg: MCTSConfig):
             "gumbel search replaces Dirichlet root noise (exploration is "
             "the Gumbel sample) — set dirichlet_alpha=None"
         )
-    if getattr(cfg, "parallel_sims", 1) > 1:
-        raise ValueError(
-            "gumbel runs on the XLA engine parts, which are sequential — "
-            "set parallel_sims=1"
-        )
 
     parts = make_engine_parts(game, apply_fn, cfg)
     feat_v = jax.vmap(game.to_features)

@@ -7,7 +7,7 @@ the transposition table and the next search continues from its subtree
 (reference: src/coach.rs:104-157, src/async_mcts.rs:81
 ``lookup_state_id``).
 
-The TPU-native equivalent cannot keep appending to one arena: the XLA
+The lockstep equivalent cannot keep appending to one arena: the XLA
 engine's per-simulation passes are dense over the whole capacity axis, so
 an episode-lifetime arena would make every simulation O(episode · sims)
 instead of O(sims). Instead, :func:`make_reroot_fn` builds a jittable

@@ -1,14 +1,14 @@
-"""Lockstep vectorized PUCT search — the TPU-native AsyncMcts.
+"""Lockstep vectorized PUCT search — the accelerator-native AsyncMcts.
 
 Re-design of the reference's parallel tree search (reference:
 src/async_mcts.rs:14-372). The reference keeps a CPU busy around a slow NN
 by running ``num_threads`` searcher threads against one batching inference
-service thread connected by channels (async_mcts.rs:117-217). On TPU the
-whole construction inverts: ``B`` independent game trees advance **one
-simulation per step, in lockstep, under one ``jit``** — and, measured on
-hardware, the engine is built to be **gather/scatter-free**: arbitrary
-per-row indexed reads/writes cost 0.4-4 ms per op at B=8192 on this chip,
-while dense passes stream at HBM speed. Concretely, per simulation:
+service thread connected by channels (async_mcts.rs:117-217). On an
+accelerator the whole construction inverts: ``B`` independent game trees
+advance **one simulation per step, in lockstep, under one ``jit``**. The
+engine is built to be **gather/scatter-free**: every per-game read and
+write of the tree is a dense pass over fixed-shape planes. Concretely,
+per simulation:
 
 * one dense pass computes PUCT scores for the WHOLE tree (tree stats are
   frozen during a descent, so scores are valid for every level);
@@ -18,7 +18,7 @@ while dense passes stream at HBM speed. Concretely, per simulation:
 * expansion writes land at the lockstep scalar slot cursor via static
   ``dynamic_update_slice`` — no scatter (see tree.py on slot burning);
 * the parent->child link is a fused dense add into the child plane;
-* backup is a batched one-hot matmul (MXU) added to the N/W planes with
+* backup is a batched one-hot matmul added to the N/W planes with
   **negamax sign alternation** — fixing defect D5 (async_mcts.rs:361-370
   applied the same value at every level);
 * the NN forward pass on all B leaves is inlined (replacing the channel
@@ -357,11 +357,15 @@ def make_engine_parts(game, apply_fn: ApplyFn, cfg: MCTSConfig, _ablate: str = "
         oh_pn = (
             lane_c[None, None, :] == sel["path_n"][:, :, None]
         ).astype(jnp.bfloat16)  # [B, D, C] (exact 0/1)
+        # HIGHEST: the f32 leaf values must reach the W planes unrounded
+        # (a GPU runs a DEFAULT-precision f32 dot in TF32, which keeps
+        # ~3 decimal digits and would split CPU and GPU search results)
         upd = jnp.einsum(
             "bkda,bdc->bkac",
             coeff[:, :, :, None] * oh_pa[:, None, :, :],
             oh_pn,
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )  # [B, 2, A, C]
         if _ablate == "2xbackup":
             upd2 = jnp.einsum(
@@ -369,6 +373,7 @@ def make_engine_parts(game, apply_fn: ApplyFn, cfg: MCTSConfig, _ablate: str = "
                 (coeff * (1 + 1e-7))[:, :, :, None] * oh_pa[:, None, :, :],
                 oh_pn,
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
             probe = probe + upd2[:, 0, 0, 0].sum()
         # one fused add pass over stats: backup (N|W planes) + child link

@@ -1,8 +1,8 @@
-"""The batched array tree — the TPU-native NodeStore.
+"""The batched array tree — the accelerator-native NodeStore.
 
 Re-design of the reference's lock-free node arena (reference:
 src/node.rs:129-377 ``NodeStore``) and per-node packed atomic statistics
-(node.rs:12-127 ``Node``). On TPU there is no concurrency to defend
+(node.rs:12-127 ``Node``). In lockstep there is no concurrency to defend
 against — every game advances exactly one simulation per lockstep step —
 so the packed W/N/virtual-loss ``AtomicU64`` (node.rs:17) and the CAS
 spinlock slot lifecycle (node.rs:328-341) dissolve into plain arrays;
@@ -10,12 +10,11 @@ virtual loss is unnecessary by construction (SURVEY.md §2). The concurrent
 transposition table (node.rs:135) is intentionally dropped (SURVEY.md §7
 hard-parts (c)).
 
-**Layout is chosen for the hardware, measured, not guessed.** TPU arrays
-tile their two minor dims ((8,128) f32 / (32,128) int8), and profiling
-showed arbitrary-index gathers/scatters cost 0.4-4 ms per op at B=8192 —
-while dense elementwise passes are ~free. So the tree is LANE-MAJOR with
-the node-capacity axis C on the 128-lane minor dimension, and the search
-never gathers or scatters:
+**Layout: dense planes, no gathers.** The tree is LANE-MAJOR with the
+node-capacity axis C as the minor dimension, and the search never gathers
+or scatters — every per-game read or write is a dense pass that XLA fuses
+(whether indexed reads would now be cheaper is an open question for the
+GPU; see ROADMAP.md):
 
 * ``stats: f32[B, 4, A, C]`` — stat planes (N | W | P_masked | child);
   "read node n's row" is a one-hot multiply + lane-reduce (a dense pass),

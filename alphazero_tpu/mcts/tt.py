@@ -96,12 +96,7 @@ class TTTree(NamedTuple):
 
 def make_tt_search_fn(game, apply_fn: ApplyFn, cfg: MCTSConfig):
     """Build ``search(params, root_state, rng) -> TTTree`` with the
-    reference's transposition-DAG semantics. K=1 lockstep only."""
-    if getattr(cfg, "parallel_sims", 1) > 1:
-        raise ValueError(
-            "the transposition engine is exact-K=1 only — the DAG's "
-            "dedup-continue descent has no leaf-parallel round semantics"
-        )
+    reference's transposition-DAG semantics."""
     A = game.num_actions
     C = cfg.nodes
     D = cfg.max_depth
@@ -366,7 +361,9 @@ def make_tt_search_fn(game, apply_fn: ApplyFn, cfg: MCTSConfig):
         ).astype(jnp.float32)  # [B, D+1, C]
         w_la = ((link_c + 1.0) * on)[:, :, None] * oh_la  # [B, D+1, A]
         link_add = jnp.einsum(
-            "bda,bdc->bac", w_la, oh_lp, preferred_element_type=jnp.float32
+            "bda,bdc->bac", w_la, oh_lp,
+            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
         pstats = pstats.at[:, 1].add(link_add)
 
@@ -413,7 +410,9 @@ def make_tt_search_fn(game, apply_fn: ApplyFn, cfg: MCTSConfig):
             lane_c[None, None, :] == path[:, :, None]
         ).astype(jnp.float32)  # [B, D, C]
         upd = jnp.einsum(
-            "bkd,bdc->bkc", coeff, oh_pn, preferred_element_type=jnp.float32
+            "bkd,bdc->bkc", coeff, oh_pn,
+            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
         nstats = tree.nstats + upd
 

@@ -3,8 +3,8 @@ from alphazero_tpu.models.nets import (
     AZResNet,
     MLPNet,
     UniformModel,
-    init_flax_model,
-    make_flax_apply_fn,
+    init_model,
+    make_apply_fn,
     make_uniform_model,
 )
 
@@ -14,6 +14,6 @@ __all__ = [
     "MLPNet",
     "AZResNet",
     "AZConvNet",
-    "make_flax_apply_fn",
-    "init_flax_model",
+    "make_apply_fn",
+    "init_model",
 ]

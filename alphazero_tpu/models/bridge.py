@@ -11,7 +11,7 @@ search via ``jax.pure_callback``.
 This is the escape hatch, not the fast path: every call crosses the
 host<->device boundary exactly like the reference's channel hop into its
 inference-service thread (async_mcts.rs:305-315), so it serializes the
-search on the callback. Native flax models fused into the step are the
+search on the callback. Native JAX models fused into the step are the
 production path; the bridge exists for parity and for wrapping legacy
 models during migration.
 
@@ -73,8 +73,3 @@ class HostModelBridge:
             host_call, out_shape, params["model_id"], feats, vmap_method="sequential"
         )
 
-
-# the Pallas engines decline host-callback models: the search serializes on
-# the host round-trip either way, so the general XLA engine is the right
-# (and well-tested) vehicle for callbacks
-HostModelBridge.apply_fn.host_callback = True

@@ -10,22 +10,38 @@ architecture/loss spec only — defect D10) and the uniform dummy net
 Interface: every model exposes ``apply_fn(variables, features[B, ...]) ->
 (policy_logits[B, A], value[B])`` — a pure function fused straight into the
 search step (no inference service thread / channel hop,
-async_mcts.rs:117-189). Variables are flax dicts ``{'params', ...,
-'batch_stats', ...}``; model versioning is plain pytree substitution
-(incumbent vs candidate live side by side), replacing the reference's
-checkpoint-reload-on-model-id scheme (python_nnet.rs:65-75,106-117).
+async_mcts.rs:117-189). Variables are nested dicts ``{'params': ...,
+'batch_stats': ...}`` keyed by layer name (``Dense_0``, ``Conv_1``,
+``BatchNorm_2``, ``_ResBlock_0/Conv_0``, ``policy``, ``value``); model
+versioning is plain pytree substitution (incumbent vs candidate live side
+by side), replacing the reference's checkpoint-reload-on-model-id scheme
+(python_nnet.rs:65-75,106-117).
 
-Compute dtype is bfloat16 on the matmul/conv path (MXU-native), float32 for
+The modules are plain JAX: ``init(rng, sample, train=False)`` and
+``apply(variables, x, train=False, mutable=None, rngs=None)`` walk one
+forward function that reads each parameter by name (and, at init, creates
+it). A parameter's init key is the init rng folded with a SHA-1 hash of
+its layer path, so a parameter's value depends only on its name and shape,
+never on the order layers are built in.
+
+Compute dtype is bfloat16 on the matmul/conv path, float32 for
 normalization statistics and head outputs.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from typing import Any, Callable, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+from jax import lax
+
+_relu = jax.nn.relu
+_lecun_normal = jax.nn.initializers.lecun_normal()
+_BN_MOMENTUM = 0.99
+_BN_EPS = 1e-5
 
 
 class UniformModel:
@@ -47,9 +63,6 @@ class UniformModel:
 
         # the search skips feature materialization for feature-free models
         apply_fn.needs_features = False
-        # constant prior/value: eligible for the VMEM-resident fused search
-        # kernel (mcts/fused.py)
-        apply_fn.uniform_value = value
         self.apply_fn = apply_fn
 
     def init(self, rng: jax.Array, sample: jax.Array) -> Any:
@@ -61,104 +74,153 @@ def make_uniform_model(game, value: float = 0.0) -> UniformModel:
     return UniformModel(game.num_actions, value)
 
 
-class MLPNet(nn.Module):
+def _path_key(rng: jax.Array, path: Tuple[Any, ...]) -> jax.Array:
+    """Fold a layer path (names, then the layer's key counter) into
+    ``rng`` through the first 4 bytes of its SHA-1 digest."""
+    m = hashlib.sha1()
+    for x in path:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        else:
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+    return jax.random.fold_in(
+        rng, jnp.uint32(int.from_bytes(m.digest()[:4], byteorder="big"))
+    )
+
+
+class _Layers:
+    """Named-parameter access for one forward pass.
+
+    With ``init_rng`` set, a parameter missing from ``params`` is created
+    (kernels from lecun-normal under the layer's path key, biases and BN
+    shifts zero, BN scales one, running stats mean 0 / var 1). In train
+    mode BatchNorm normalizes with batch statistics and records updated
+    running statistics in ``new_stats``; otherwise it uses the stored ones.
+    """
+
+    def __init__(self, params, stats, train: bool, init_rng=None, dropout_rng=None):
+        self.params = params
+        self.stats = stats
+        self.train = train
+        self.init_rng = init_rng
+        self.dropout_rng = dropout_rng
+        self.new_stats = {}
+
+    def _node(self, tree, path):
+        for name in path:
+            tree = tree.setdefault(name, {}) if self.init_rng is not None else tree[name]
+        return tree
+
+    def _param(self, path, name, shape, init):
+        node = self._node(self.params, path)
+        if self.init_rng is not None and name not in node:
+            if init is _lecun_normal:
+                node[name] = init(_path_key(self.init_rng, path + (1,)), shape, jnp.float32)
+            else:
+                node[name] = init(shape, jnp.float32)
+        return node[name]
+
+    def dense(self, path, x, features: int, dtype, use_bias: bool = True):
+        kernel = self._param(path, "kernel", (x.shape[-1], features), _lecun_normal)
+        y = lax.dot_general(
+            x.astype(dtype), kernel.astype(dtype), (((x.ndim - 1,), (0,)), ((), ()))
+        )
+        if use_bias:
+            bias = self._param(path, "bias", (features,), jnp.zeros)
+            y = y + bias.astype(dtype).reshape((1,) * (y.ndim - 1) + (-1,))
+        return y
+
+    def conv(self, path, x, features: int, kernel_size, padding, dtype):
+        shape = tuple(kernel_size) + (x.shape[-1], features)
+        kernel = self._param(path, "kernel", shape, _lecun_normal)
+        return lax.conv_general_dilated(
+            x.astype(dtype),
+            kernel.astype(dtype),
+            (1,) * len(kernel_size),
+            padding,
+            dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        )
+
+    def batch_norm(self, path, x):
+        feat = (x.shape[-1],)
+        axes = tuple(range(x.ndim - 1))
+        scale = self._param(path, "scale", feat, jnp.ones)
+        bias = self._param(path, "bias", feat, jnp.zeros)
+        node = self._node(self.stats, path)
+        if self.init_rng is not None and "mean" not in node:
+            node["mean"] = jnp.zeros(feat, jnp.float32)
+            node["var"] = jnp.ones(feat, jnp.float32)
+        if self.train:
+            # fast variance E[x^2] - E[x]^2 in float32, clipped at 0
+            xf = x.astype(jnp.float32)
+            mean = xf.mean(axes)
+            var = jnp.maximum(0.0, lax.square(xf).mean(axes) - lax.square(mean))
+            out = self.new_stats
+            for name in path:
+                out = out.setdefault(name, {})
+            out["mean"] = _BN_MOMENTUM * node["mean"] + (1 - _BN_MOMENTUM) * mean
+            out["var"] = _BN_MOMENTUM * node["var"] + (1 - _BN_MOMENTUM) * var
+        else:
+            mean, var = node["mean"], node["var"]
+        y = x - mean
+        mul = lax.rsqrt(var + _BN_EPS) * scale
+        return (y * mul + bias).astype(jnp.float32)
+
+    def dropout(self, path, x, rate: float):
+        if not self.train or rate == 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = jax.random.bernoulli(
+            _path_key(self.dropout_rng, path + (1,)), p=keep, shape=x.shape
+        )
+        return lax.select(mask, x / keep, jnp.zeros_like(x))
+
+
+class _Net:
+    """``init``/``apply`` over a model's ``_forward(layers, x)``."""
+
+    def init(self, rng: jax.Array, sample: jax.Array, train: bool = False) -> dict:
+        del train  # init always runs the inference forward
+        layers = _Layers({}, {}, train=False, init_rng=rng)
+        self._forward(layers, sample)
+        variables = {"params": layers.params}
+        if layers.stats:
+            variables["batch_stats"] = layers.stats
+        return variables
+
+    def apply(self, variables, x, train: bool = False, mutable=None, rngs=None):
+        """``(logits, value)``; with ``mutable=["batch_stats"]`` also the
+        updated running statistics ``{"batch_stats": ...}`` (train mode)."""
+        layers = _Layers(
+            variables["params"],
+            variables.get("batch_stats", {}),
+            train=train,
+            dropout_rng=(rngs or {}).get("dropout"),
+        )
+        out = self._forward(layers, x)
+        if mutable:
+            return out, {"batch_stats": layers.new_stats or layers.stats}
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPNet(_Net):
     """Tiny MLP policy/value net (BASELINE config 2)."""
 
     num_actions: int
     hidden: Sequence[int] = (256, 256)
     dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x: jax.Array, train: bool = False):
-        del train
+    def _forward(self, layers: _Layers, x: jax.Array):
         x = x.reshape((x.shape[0], -1)).astype(self.dtype)
-        for h in self.hidden:
-            x = nn.Dense(h, dtype=self.dtype)(x)
-            x = nn.relu(x)
-        logits = nn.Dense(self.num_actions, dtype=jnp.float32, name="policy")(x)
-        v = nn.Dense(1, dtype=jnp.float32, name="value")(x)
+        for i, h in enumerate(self.hidden):
+            x = _relu(layers.dense((f"Dense_{i}",), x, h, self.dtype))
+        logits = layers.dense(("policy",), x, self.num_actions, jnp.float32)
+        v = layers.dense(("value",), x, 1, jnp.float32)
         return logits, jnp.tanh(v)[:, 0]
 
 
-def attach_mlp_kernel_eval(model: MLPNet, apply_fn) -> None:
-    """Register an IN-KERNEL evaluator so the fused VMEM-resident search
-    (mcts/fused.py) can run this MLP on the MXU inside the Pallas kernel —
-    the whole net (~0.5 MB of weights) lives in VMEM next to the trees, so
-    NN-backed search keeps the fused kernel's throughput instead of
-    falling back to the HBM-streaming XLA engine.
-
-    The evaluator replays ``MLPNet.__call__`` exactly (bf16 hidden
-    matmuls, f32 heads, tanh value). Features are derived from the flat
-    board; the first layer's kernel rows are permuted host-side from the
-    interleaved NHWC-flat order to the kernel's [+plane | -plane] concat
-    order, which leaves each dot product's value set unchanged.
-    """
-    n_hidden = len(tuple(model.hidden))
-    num_actions = int(model.num_actions)
-
-    def factory(ops):
-        L = ops.size
-        # x_cat[:, j] = x_nhwc[:, 2j] for j < L (the +1 plane), else
-        # x_nhwc[:, 2(j-L)+1] (the -1 plane)
-        perm = jnp.asarray(
-            [2 * j for j in range(L)] + [2 * j + 1 for j in range(L)],
-            jnp.int32,
-        )
-
-        def extract(variables):
-            p = variables["params"]
-            arrs = []
-            w0 = jnp.take(p["Dense_0"]["kernel"], perm, axis=0)
-            arrs.append(w0)
-            arrs.append(p["Dense_0"]["bias"][None, :])
-            for i in range(1, n_hidden):
-                arrs.append(p[f"Dense_{i}"]["kernel"])
-                arrs.append(p[f"Dense_{i}"]["bias"][None, :])
-            # fused policy|value head (column-independent, so identical
-            # results to two separate f32 matmuls)
-            wh = jnp.concatenate(
-                [p["policy"]["kernel"], p["value"]["kernel"]], axis=1
-            )
-            bh = jnp.concatenate(
-                [p["policy"]["bias"], p["value"]["bias"]], axis=0
-            )[None, :]
-            arrs.append(wh)
-            arrs.append(bh)
-            return arrs
-
-        def eval_fn(board, vm, *arrs):
-            del vm
-            dt = model.dtype
-            x = jnp.concatenate(
-                [
-                    (board == 1).astype(jnp.float32),
-                    (board == -1).astype(jnp.float32),
-                ],
-                axis=1,
-            ).astype(dt)
-            for i in range(n_hidden):
-                w, b = arrs[2 * i], arrs[2 * i + 1]
-                # Mosaic requires 32-bit matmul accumulation; XLA's bf16
-                # dot is f32-accumulate + round, so this matches exactly
-                h32 = jnp.dot(
-                    x, w.astype(dt), preferred_element_type=jnp.float32
-                )
-                x = jnp.maximum(h32.astype(dt) + b.astype(dt), 0)
-            h = x.astype(jnp.float32)
-            out = (
-                jnp.dot(h, arrs[-2], preferred_element_type=jnp.float32)
-                + arrs[-1]
-            )
-            logits = out[:, :num_actions]
-            value = jnp.tanh(out[:, num_actions : num_actions + 1])
-            return logits, value
-
-        return extract, eval_fn
-
-    apply_fn.kernel_eval_factory = factory
-
-
-def _fold_conv_bn(kernel, bn_params, bn_stats, dtype, eps: float = 1e-5):
+def _fold_conv_bn(kernel, bn_params, bn_stats, dtype, eps: float = _BN_EPS):
     """Fold an inference BatchNorm into the preceding bias-free conv/dense
     kernel: returns (W * gamma/sqrt(var+eps), beta - mean*gamma/sqrt(...))
     in the compute dtype. Scale applies to the output-channel (last) dim."""
@@ -169,21 +231,8 @@ def _fold_conv_bn(kernel, bn_params, bn_stats, dtype, eps: float = 1e-5):
     return w.astype(dtype), b.astype(dtype)
 
 
-class _ResBlock(nn.Module):
-    channels: int
-    dtype: Any
-
-    @nn.compact
-    def __call__(self, x, train: bool):
-        y = nn.Conv(self.channels, (3, 3), padding="SAME", use_bias=False, dtype=self.dtype)(x)
-        y = nn.BatchNorm(use_running_average=not train, dtype=jnp.float32)(y)
-        y = nn.relu(y)
-        y = nn.Conv(self.channels, (3, 3), padding="SAME", use_bias=False, dtype=self.dtype)(y)
-        y = nn.BatchNorm(use_running_average=not train, dtype=jnp.float32)(y)
-        return nn.relu(x + y.astype(x.dtype))
-
-
-class AZResNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class AZResNet(_Net):
     """AlphaZero-style conv resnet — the flagship model (BASELINE config 3).
 
     Stem conv + residual tower + 1x1-conv policy/value heads, BN throughout
@@ -198,38 +247,39 @@ class AZResNet(nn.Module):
     value_hidden: int = 256
     dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x: jax.Array, train: bool = False):
-        x = x.astype(self.dtype)
-        x = nn.Conv(self.channels, (3, 3), padding="SAME", use_bias=False, dtype=self.dtype)(x)
-        x = nn.BatchNorm(use_running_average=not train, dtype=jnp.float32)(x)
-        x = nn.relu(x).astype(self.dtype)
-        for _ in range(self.blocks):
-            x = _ResBlock(self.channels, self.dtype)(x, train)
+    def _forward(self, layers: _Layers, x: jax.Array):
+        dt = self.dtype
+        x = x.astype(dt)
+        x = layers.conv(("Conv_0",), x, self.channels, (3, 3), "SAME", dt)
+        x = _relu(layers.batch_norm(("BatchNorm_0",), x)).astype(dt)
+        for i in range(self.blocks):
+            blk = (f"_ResBlock_{i}",)
+            y = layers.conv(blk + ("Conv_0",), x, self.channels, (3, 3), "SAME", dt)
+            y = _relu(layers.batch_norm(blk + ("BatchNorm_0",), y))
+            y = layers.conv(blk + ("Conv_1",), y, self.channels, (3, 3), "SAME", dt)
+            y = layers.batch_norm(blk + ("BatchNorm_1",), y)
+            x = _relu(x + y.astype(x.dtype))
 
-        p = nn.Conv(2, (1, 1), use_bias=False, dtype=self.dtype)(x)
-        p = nn.BatchNorm(use_running_average=not train, dtype=jnp.float32)(p)
-        p = nn.relu(p).reshape((x.shape[0], -1))
-        logits = nn.Dense(self.num_actions, dtype=jnp.float32, name="policy")(p)
+        p = layers.conv(("Conv_1",), x, 2, (1, 1), "SAME", dt)
+        p = _relu(layers.batch_norm(("BatchNorm_1",), p)).reshape((x.shape[0], -1))
+        logits = layers.dense(("policy",), p, self.num_actions, jnp.float32)
 
-        v = nn.Conv(1, (1, 1), use_bias=False, dtype=self.dtype)(x)
-        v = nn.BatchNorm(use_running_average=not train, dtype=jnp.float32)(v)
-        v = nn.relu(v).reshape((x.shape[0], -1))
-        v = nn.relu(nn.Dense(self.value_hidden, dtype=self.dtype)(v))
-        v = nn.Dense(1, dtype=jnp.float32, name="value")(v)
+        v = layers.conv(("Conv_2",), x, 1, (1, 1), "SAME", dt)
+        v = _relu(layers.batch_norm(("BatchNorm_2",), v)).reshape((x.shape[0], -1))
+        v = _relu(layers.dense(("Dense_0",), v, self.value_hidden, dt))
+        v = layers.dense(("value",), v, 1, jnp.float32)
         return logits, jnp.tanh(v)[:, 0]
 
     def folded_apply(self, variables, feats):
         """BN-folded inference forward — the search-side eval path.
 
-        Measured on the v5e chip, the unfolded eval tower is NOT
-        MXU-bound: f32 runs as fast as bf16 because the separate
-        f32-BatchNorm passes (plus their dtype conversions) dominate.
-        Folding every BN into its conv (W' = W * gamma/sqrt(var+eps),
-        b' = beta - mean * gamma/sqrt(var+eps)) removes those passes —
-        ~1.2x on the forward, |delta logits| ~1e-2 (statistically
-        equivalent for search; asserted in tests/test_fold.py). Training
-        keeps real BatchNorm; this touches only inference."""
+        Every BN is folded into its conv (W' = W * gamma/sqrt(var+eps),
+        b' = beta - mean * gamma/sqrt(var+eps)), which removes the separate
+        f32 normalization passes and their dtype conversions from the
+        search's forward. |delta logits| ~1e-2 against the unfolded
+        forward (statistically equivalent for search; asserted in
+        tests/test_fold.py). Training keeps real BatchNorm; this touches
+        only inference."""
         p = variables["params"]
         bs = variables["batch_stats"]
         dt = self.dtype
@@ -244,36 +294,37 @@ class AZResNet(nn.Module):
             return y + b
 
         x = feats.astype(dt)
-        x = nn.relu(
+        x = _relu(
             conv(x, _fold_conv_bn(p["Conv_0"]["kernel"], p["BatchNorm_0"], bs["BatchNorm_0"], dt))
         )
         for i in range(self.blocks):
             bp = p[f"_ResBlock_{i}"]
             bss = bs[f"_ResBlock_{i}"]
-            y = nn.relu(
+            y = _relu(
                 conv(x, _fold_conv_bn(bp["Conv_0"]["kernel"], bp["BatchNorm_0"], bss["BatchNorm_0"], dt))
             )
             y = conv(y, _fold_conv_bn(bp["Conv_1"]["kernel"], bp["BatchNorm_1"], bss["BatchNorm_1"], dt))
-            x = nn.relu(x + y)
+            x = _relu(x + y)
 
-        pl = nn.relu(
+        pl = _relu(
             conv(x, _fold_conv_bn(p["Conv_1"]["kernel"], p["BatchNorm_1"], bs["BatchNorm_1"], dt))
         ).reshape((x.shape[0], -1))
         logits = (
             pl.astype(jnp.float32) @ p["policy"]["kernel"] + p["policy"]["bias"]
         )
 
-        vl = nn.relu(
+        vl = _relu(
             conv(x, _fold_conv_bn(p["Conv_2"]["kernel"], p["BatchNorm_2"], bs["BatchNorm_2"], dt))
         ).reshape((x.shape[0], -1))
-        vh = nn.relu(
+        vh = _relu(
             vl @ p["Dense_0"]["kernel"].astype(dt) + p["Dense_0"]["bias"].astype(dt)
         )
         v = vh.astype(jnp.float32) @ p["value"]["kernel"] + p["value"]["bias"]
         return logits, jnp.tanh(v)[:, 0]
 
 
-class AZConvNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class AZConvNet(_Net):
     """Plain conv net matching the reference's TF1 architecture spec
     (connect_four_net.py:20-100): 4 conv3x3 layers (SAME, SAME, VALID,
     VALID) + BN + ReLU, flatten, Dense(1024)+BN+ReLU+Dropout,
@@ -285,26 +336,24 @@ class AZConvNet(nn.Module):
     dropout: float = 0.3         # (connect_four_net.py:13)
     dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x: jax.Array, train: bool = False):
-        x = x.astype(self.dtype)
-        for pad in ("SAME", "SAME", "VALID", "VALID"):
-            x = nn.Conv(self.channels, (3, 3), padding=pad, use_bias=False, dtype=self.dtype)(x)
-            x = nn.BatchNorm(use_running_average=not train, dtype=jnp.float32)(x)
-            x = nn.relu(x).astype(self.dtype)
+    def _forward(self, layers: _Layers, x: jax.Array):
+        dt = self.dtype
+        x = x.astype(dt)
+        for i, pad in enumerate(("SAME", "SAME", "VALID", "VALID")):
+            x = layers.conv((f"Conv_{i}",), x, self.channels, (3, 3), pad, dt)
+            x = _relu(layers.batch_norm((f"BatchNorm_{i}",), x)).astype(dt)
         x = x.reshape((x.shape[0], -1))
-        for h in (1024, 512):
-            x = nn.Dense(h, use_bias=False, dtype=self.dtype)(x)
-            x = nn.BatchNorm(use_running_average=not train, dtype=jnp.float32)(x)
-            x = nn.relu(x).astype(self.dtype)
-            x = nn.Dropout(self.dropout, deterministic=not train)(x)
-        logits = nn.Dense(self.num_actions, dtype=jnp.float32, name="policy")(x)
-        v = nn.Dense(1, dtype=jnp.float32, name="value")(x)
+        for j, h in enumerate((1024, 512)):
+            x = layers.dense((f"Dense_{j}",), x, h, dt, use_bias=False)
+            x = _relu(layers.batch_norm((f"BatchNorm_{4 + j}",), x)).astype(dt)
+            x = layers.dropout((f"Dropout_{j}",), x, self.dropout)
+        logits = layers.dense(("policy",), x, self.num_actions, jnp.float32)
+        v = layers.dense(("value",), x, 1, jnp.float32)
         return logits, jnp.tanh(v)[:, 0]
 
     def folded_apply(self, variables, feats):
         """BN-folded inference forward (see AZResNet.folded_apply — same
-        measured motivation; Dropout is identity at inference)."""
+        motivation; Dropout is identity at inference)."""
         p = variables["params"]
         bs = variables["batch_stats"]
         dt = self.dtype
@@ -319,7 +368,7 @@ class AZConvNet(nn.Module):
                 dimension_numbers=("NHWC", "HWIO", "NHWC"),
                 preferred_element_type=dt,
             )
-            x = nn.relu(y + b)
+            x = _relu(y + b)
         x = x.reshape((x.shape[0], -1))
         for j in range(2):
             w, b = _fold_conv_bn(
@@ -328,13 +377,13 @@ class AZConvNet(nn.Module):
                 bs[f"BatchNorm_{4 + j}"],
                 dt,
             )
-            x = nn.relu(x @ w + b)
+            x = _relu(x @ w + b)
         logits = x.astype(jnp.float32) @ p["policy"]["kernel"] + p["policy"]["bias"]
         v = x.astype(jnp.float32) @ p["value"]["kernel"] + p["value"]["bias"]
         return logits, jnp.tanh(v)[:, 0]
 
 
-def make_flax_apply_fn(model: nn.Module, fold: Optional[bool] = None) -> Callable:
+def make_apply_fn(model, fold: Optional[bool] = None) -> Callable:
     """Inference-mode apply: (variables, feats) -> (logits, value).
 
     Uses running BN statistics (train=False) — the search-side predict path
@@ -361,14 +410,9 @@ def make_flax_apply_fn(model: nn.Module, fold: Optional[bool] = None) -> Callabl
     # can be compared knowing which eval path (folded vs unfolded BN, ~1e-2
     # logit delta) produced them.
     apply_fn.folded = use_folded
-
-    if isinstance(model, MLPNet):
-        # MLPs additionally get an in-kernel evaluator so the fused
-        # VMEM-resident search can run them on the MXU inside the kernel
-        attach_mlp_kernel_eval(model, apply_fn)
     return apply_fn
 
 
-def init_flax_model(model: nn.Module, rng: jax.Array, feature_shape) -> Any:
+def init_model(model, rng: jax.Array, feature_shape) -> Any:
     sample = jnp.zeros((1,) + tuple(feature_shape), jnp.float32)
     return model.init(rng, sample, train=False)

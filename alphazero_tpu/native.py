@@ -1,6 +1,6 @@
 """ctypes bindings for the native runtime components.
 
-The reference's runtime is native end to end (a Rust crate); here the TPU
+The reference's runtime is native end to end (a Rust crate); here the device
 compute path is JAX/XLA and the native layer covers what stays on the
 host: the example store (csrc/example_store.cpp — the bincode history
 persistence of coach.rs:159-167 rebuilt) and the sequential MCTS oracle

@@ -10,8 +10,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# python float (not a jnp scalar): masked_policy is also traced inside
-# the fused Pallas kernel, where captured array constants are disallowed
 _NEG_INF = -1e30
 
 

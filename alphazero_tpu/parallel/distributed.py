@@ -2,11 +2,12 @@
 
 The reference's transport layer is in-process crossbeam channels
 (reference: src/async_mcts.rs:22-23, 117-189) — its "hosts" are threads in
-one address space. The TPU-native replacement (SURVEY.md §5 "Distributed
+one address space. The accelerator-native replacement (SURVEY.md §5 "Distributed
 communication backend") is multi-controller JAX: every host runs the SAME
 Coach program under ``jax.distributed.initialize``, the device mesh spans
 all hosts, and XLA's collectives (gradient ``psum`` on the ``data`` axis)
-ride ICI within a slice and DCN across slices. There is no message-passing
+ride the devices' interconnect (NVLink within a host) and the
+network across hosts. There is no message-passing
 code to write: the jitted phases are already global-SPMD programs, so
 multi-host is the single-controller code executed by N controllers.
 

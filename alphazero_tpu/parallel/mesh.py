@@ -2,12 +2,12 @@
 
 The reference's only transport is in-process crossbeam channels + shared
 memory (reference: src/async_mcts.rs:22-23, 117-189; src/coach.rs:180-182;
-SURVEY.md §5 "Distributed communication backend: none"). The TPU-native
+SURVEY.md §5 "Distributed communication backend: none"). The accelerator-native
 equivalent is a ``jax.sharding.Mesh`` with named axes:
 
 * ``data`` — the game/sample batch axis. Self-play trees, replay slots and
   learner minibatches shard here; gradient means become XLA-inserted
-  ``psum`` collectives riding ICI.
+  ``psum`` collectives.
 * ``model`` — optional tensor-parallel axis for large nets: parameter
   leaves whose trailing (output-channel) dimension divides the axis size
   are sharded there.

@@ -9,14 +9,14 @@ are periodically RE-SEARCHED with the current net and re-inserted with
 fresh policy targets. The value target is NOT refreshed — for board games
 the stored game outcome is ground truth, and only the policy is stale.
 
-Mechanics, TPU-first:
+Mechanics, on-device:
 
 * Self-play records each sample's canonical root STATE (not just its
   features) — ``make_selfplay_fn(record_states=True)`` — into a
   :class:`PositionStore`, a second on-device ring holding pre-symmetry
   positions + their outcome targets.
 * A reanalyze pass is one more jitted batched search: sample
-  ``batch_size`` stored positions, run the engine-ladder search at the
+  ``batch_size`` stored positions, run the XLA search at the
   full budget with NO root noise and NO temperature (the target should
   be the strongest available play distribution, not an exploration one),
   and emit a one-step :class:`~alphazero_tpu.selfplay.Trajectory` whose
@@ -122,7 +122,6 @@ def make_reanalyze_fn(
     apply_fn,
     mcts_cfg: MCTSConfig,
     rz_cfg: ReanalyzeConfig,
-    mesh=None,
 ) -> Callable[..., Tuple[Trajectory, jax.Array, jax.Array]]:
     """Build ``reanalyze(params, store, rng, iteration) ->
     (Trajectory, num_refreshed, age_mean)``.
@@ -151,9 +150,7 @@ def make_reanalyze_fn(
 
         gsearch = make_gumbel_search_fn(game, apply_fn, search_cfg)
     else:
-        root_counts = _make_root_counts_fn(
-            game, apply_fn, search_cfg, mesh=mesh
-        )
+        root_counts = _make_root_counts_fn(game, apply_fn, search_cfg)
     feat_v = jax.vmap(game.to_features)
     R = int(rz_cfg.batch_size)
 

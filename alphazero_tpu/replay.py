@@ -30,13 +30,11 @@ _LIMB_BITS = 30  # total = hi * 2^30 + lo; both limbs stay far from i32 range
 class ReplayState(NamedTuple):
     """Packed ring: one row per sample, ``[features... | pi... | value]``.
 
-    TPU arrays tile their two minor dims to (8, 128); storing features/
-    pi/value as separate arrays paid that padding three times over —
-    measured on the full preset, ``pi f32[Cap, 7]`` alone expanded 18x
-    (1 GB/2M rows for 56 MB of data) and the whole ring OOMed a 16 GB
-    chip at 2M capacity. One packed f32[Cap, F+A+1] row (92 lanes for
-    connect-four) fits a single 128-lane tile: ~10x less HBM, and
-    insert becomes ONE scatter instead of three."""
+    One packed f32[Cap, F+A+1] row (92 floats for connect-four) keeps
+    each sample contiguous: insert is ONE scatter instead of three, and
+    sampling is one row gather. Devices that tile an array's two minor
+    dimensions would otherwise pad a narrow ``pi f32[Cap, 7]`` many times
+    over."""
 
     data: jax.Array      # f32[Cap, F+A+1] packed rows
     pos: jax.Array       # i32[] next write slot

@@ -37,41 +37,24 @@ import jax
 import jax.numpy as jnp
 
 from alphazero_tpu.config import MCTSConfig, SelfPlayConfig
-from alphazero_tpu.mcts.fused import make_fused_root_fn
-from alphazero_tpu.mcts.hybrid import make_hybrid_root_fn
 from alphazero_tpu.mcts.search import make_search_fn
 from alphazero_tpu.ops import action_probs
 
 
-def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig, mesh=None):
+def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig):
     """``(params, state, rng) -> root visit counts [B, A]``.
 
-    Engine ladder, fastest-first: the VMEM-resident fused Pallas kernel
-    (mcts/fused.py — constant-prior or in-kernel-MLP models on games with
-    flat ops), then the hybrid descend/merge-kernel engine (mcts/hybrid.py
-    — ANY model on flat-ops games), then the general XLA engine. All are
-    bit-identical (tests/test_fused.py, tests/test_hybrid.py). ``mesh``
-    runs the Pallas engines per-shard under shard_map (the XLA engine
-    shards natively through GSPMD)."""
+    The transposition-DAG engine (mcts/tt.py) when
+    ``mcts_cfg.transposition`` is set, else the XLA PUCT engine
+    (mcts/search.py, oracle-verified against csrc/mcts_oracle.cpp). Both
+    are pure XLA programs, so under a mesh they shard through GSPMD along
+    the game batch."""
     if getattr(mcts_cfg, "transposition", False):
-        # opt-in transposition-DAG dedup (deep-search deployments) runs on
-        # its dedicated engine — pure XLA, so it shards through GSPMD like
-        # the general engine
         from alphazero_tpu.mcts.tt import make_tt_search_fn
 
-        tt_search = make_tt_search_fn(game, apply_fn, mcts_cfg)
-
-        def tt_root_counts(params, state, rng=None):
-            return tt_search(params, state, rng=rng).root_counts()
-
-        return tt_root_counts
-    fused = make_fused_root_fn(game, apply_fn, mcts_cfg, mesh=mesh)
-    if fused is not None:
-        return fused
-    hybrid = make_hybrid_root_fn(game, apply_fn, mcts_cfg, mesh=mesh)
-    if hybrid is not None:
-        return hybrid
-    search = make_search_fn(game, apply_fn, mcts_cfg)
+        search = make_tt_search_fn(game, apply_fn, mcts_cfg)
+    else:
+        search = make_search_fn(game, apply_fn, mcts_cfg)
 
     def root_counts(params, state, rng=None):
         return search(params, state, rng=rng).root_counts()
@@ -144,10 +127,9 @@ def make_selfplay_fn(
     # sub-batch searches, total compute exactly p*full + (1-p)*cheap,
     # and every (game, step) position has p odds of a policy target
     # with the full/cheap pattern varying independently across games.
-    # (Round 3 measured the earlier batch-shared per-step coin as a
-    # null result; VERDICT r3 flagged the shared coin's correlated
-    # target sparsity as a possible artifact — this is the re-test
-    # implementation.)
+    # (An earlier batch-shared per-step coin measured as a null result;
+    # its correlated target sparsity was a possible artifact — this is
+    # the re-test implementation.)
     pcr = getattr(sp_cfg, "full_search_prob", None)
     cheap_cfg = None
     if pcr is not None:
@@ -198,29 +180,18 @@ def make_selfplay_fn(
         )
     elif forced is not None:
         # forced playouts need the root's final tree (prior + Q planes)
-        # for the pruned policy target, so the move runs the XLA engine
-        # (the override is a one-plane root bonus in its fused score pass)
-        if getattr(mcts_cfg, "parallel_sims", 1) > 1:
-            raise ValueError(
-                "forced_playouts runs on the XLA engine — set "
-                "parallel_sims=1"
-            )
+        # for the pruned policy target (the override is a one-plane root
+        # bonus in the engine's fused score pass)
         from alphazero_tpu.mcts.search import pruned_root_counts
 
         fsearch = make_search_fn(game, apply_fn, mcts_cfg)
     elif reuse:
-        # tree persistence across moves forces the XLA engine (the Pallas
-        # kernels' VMEM trees live exactly one search) — see mcts/reuse.py
+        # tree persistence across moves — see mcts/reuse.py
         if getattr(mcts_cfg, "transposition", False):
             raise ValueError(
                 "tree_reuse and transposition are mutually exclusive — "
                 "re-rooting compacts parent-edge trees (mcts/reuse.py), "
                 "which has no DAG equivalent"
-            )
-        if getattr(mcts_cfg, "parallel_sims", 1) > 1:
-            raise ValueError(
-                "tree_reuse runs on the XLA engine, which has no "
-                "parallel_sims=K leaf-parallel mode — set parallel_sims=1"
             )
         from alphazero_tpu.mcts.reuse import make_reroot_fn
         from alphazero_tpu.mcts.tree import init_tree
@@ -228,9 +199,9 @@ def make_selfplay_fn(
         search = make_search_fn(game, apply_fn, mcts_cfg)
         reroot = make_reroot_fn(game, mcts_cfg.nodes)
     else:
-        root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg, mesh=mesh)
+        root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
         root_counts_cheap = (
-            _make_root_counts_fn(game, apply_fn, cheap_cfg, mesh=mesh)
+            _make_root_counts_fn(game, apply_fn, cheap_cfg)
             if cheap_cfg is not None
             else None
         )
@@ -432,10 +403,9 @@ def make_recycling_selfplay_fn(
     apply_fn,
     mcts_cfg: MCTSConfig,
     sp_cfg: SelfPlayConfig,
-    mesh=None,
 ):
-    """Training-grade episode recycling (SURVEY.md §7 hard-parts (d);
-    round-4 VERDICT item 5): every one of the ``steps`` searches per call
+    """Training-grade episode recycling (SURVEY.md §7 hard-parts (d)):
+    every one of the ``steps`` searches per call
     advances a REAL move — finished games reset to the initial position
     instead of burning searches on inert terminal roots (the fixed-T scan
     of ``make_selfplay_fn`` wastes ~15% of full-preset searches that way:
@@ -494,7 +464,7 @@ def make_recycling_selfplay_fn(
 
         gsearch = make_gumbel_search_fn(game, apply_fn, mcts_cfg)
     else:
-        root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg, mesh=mesh)
+        root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
     step_v = jax.vmap(game.step)
     term_v = jax.vmap(game.terminal)
     feat_v = jax.vmap(game.to_features)
@@ -651,7 +621,6 @@ def make_actor_step_fn(
     mcts_cfg: MCTSConfig,
     batch_size: int,
     temp_threshold: int,
-    mesh=None,
 ):
     """Steady-state actor: one search+move for every board, with finished
     games recycled to the initial position (episode recycling — SURVEY.md §7
@@ -671,7 +640,7 @@ def make_actor_step_fn(
 
         gsearch = make_gumbel_search_fn(game, apply_fn, mcts_cfg)
     else:
-        root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg, mesh=mesh)
+        root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
     step_v = jax.vmap(game.step)
     term_v = jax.vmap(game.terminal)
     B = batch_size

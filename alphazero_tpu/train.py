@@ -1,6 +1,6 @@
 """Learner: loss + optimizer step.
 
-The TPU-native ``NNet::train`` (reference: src/nnet.rs:39-41 trait method;
+The on-device ``NNet::train`` (reference: src/nnet.rs:39-41 trait method;
 examples/utils/python_nnet.rs:45-86 bridge; loss spec from the TF1 model:
 softmax cross-entropy on the policy head + MSE on the value head, Adam
 1e-3, with BatchNorm statistics updated per step —

@@ -5,14 +5,12 @@ BASELINE configs[4] scores 1-to-N scaling efficiency (target >= 80%); this
 harness measures it. Default mode is WEAK scaling — per-device game batch
 held constant while the mesh grows (the production regime: more chips run
 more lockstep games), games sharded on the ``data`` axis (SURVEY.md §2
-episode parallelism; the rayon pool's TPU-native replacement,
+episode parallelism; the rayon pool's accelerator-native replacement,
 reference: src/coach.rs:202-272). ``AZ_BENCH_MODE=strong`` holds the
 GLOBAL batch fixed (``AZ_BENCH_BATCH_GLOBAL``, default 32768) while the
-mesh grows — the regime where the fused kernel's per-shard block quantum
-becomes the floor (README "Multi-chip" notes); efficiency is
-speedup(N)/N.
+mesh grows; efficiency is speedup(N)/N.
 
-On a real multi-chip slice run it as-is. On a single host you can
+On a multi-GPU host run it as-is. On a single host you can
 mechanically validate the harness with virtual CPU devices:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 AZ_BENCH_CPU=1 \
@@ -39,16 +37,9 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    cache_dir = os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache"
-    )
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from alphazero_tpu.utils.compile_cache import enable_compile_cache
 
-    from bench import tunnel_sync
+    enable_compile_cache()
 
     from alphazero_tpu.config import MCTSConfig
     from alphazero_tpu.games import ConnectFour
@@ -71,18 +62,14 @@ def main():
     net = make_uniform_model(game)
     cfg = MCTSConfig(num_sims=sims, max_depth=48)
 
-    sync = tunnel_sync
+    sync = jax.block_until_ready
 
     results = []
     for n in counts:
         mesh = make_mesh(devices=devs[:n], axis_names=("data",))
         batch = global_b if mode == "strong" else per_dev * n
-        # mesh threaded through: the fused Pallas engine (the TPU path
-        # for this exact config) is a single-device program and needs its
-        # shard_map wrapper to ride a sharded jit
         init_carry, actor_step = make_actor_step_fn(
-            game, net.apply_fn, cfg, batch_size=batch, temp_threshold=15,
-            mesh=mesh,
+            game, net.apply_fn, cfg, batch_size=batch, temp_threshold=15
         )
         step = jax.jit(actor_step)
         carry = shard_batch(mesh, init_carry())

@@ -40,7 +40,7 @@ def load_side(game, ckpt_dir, model_kind, hidden, channels, blocks,
     from alphazero_tpu.models import (
         AZResNet,
         MLPNet,
-        make_flax_apply_fn,
+        make_apply_fn,
         make_uniform_model,
     )
 
@@ -70,7 +70,7 @@ def load_side(game, ckpt_dir, model_kind, hidden, channels, blocks,
     )
     tstate = TrainState(**payload["incumbent"])
     return (
-        make_flax_apply_fn(model),
+        make_apply_fn(model),
         variables_of(tstate),
         f"{ckpt_dir}@{step}",
     )

@@ -19,6 +19,154 @@ import sys
 sys.path.insert(0, ".")
 
 
+def build_preset(name: str, seed: int = 0, checkpoint_dir=None):
+    """``(game, model, cfg)`` of a named preset — shared by ``main`` and
+    ``chip_smoke.py``."""
+    from alphazero_tpu.config import (
+        ArenaConfig,
+        AZConfig,
+        MCTSConfig,
+        ReplayConfig,
+        SelfPlayConfig,
+        TrainConfig,
+    )
+    from alphazero_tpu.games import ConnectFour
+    from alphazero_tpu.models import AZResNet, MLPNet
+
+    game = ConnectFour()
+
+    if name == "smoke":
+        model = MLPNet(num_actions=game.num_actions, hidden=(64,))
+        cfg = AZConfig(
+            mcts=MCTSConfig(num_sims=16, max_depth=24),
+            selfplay=SelfPlayConfig(batch_size=16, temp_threshold=15),
+            replay=ReplayConfig(capacity=1 << 14),
+            train=TrainConfig(batch_size=64, steps_per_iteration=16),
+            arena=ArenaConfig(num_games=16, update_threshold=0.55, num_sims=8),
+            num_iterations=3,
+            seed=seed,
+            checkpoint_dir=checkpoint_dir,
+        )
+    elif name == "mlp":
+        # BASELINE config 2: tiny MLP, single-chip self-play + train loop
+        model = MLPNet(num_actions=game.num_actions, hidden=(256, 256))
+        cfg = AZConfig(
+            mcts=MCTSConfig(num_sims=50, max_depth=48),
+            selfplay=SelfPlayConfig(batch_size=512, temp_threshold=15),
+            replay=ReplayConfig(capacity=1 << 17),
+            train=TrainConfig(batch_size=512, steps_per_iteration=128),
+            arena=ArenaConfig(
+                num_games=128,
+                update_threshold=0.55,
+                num_sims=25,
+                anchor_interval=2,
+            ),
+            num_iterations=20,
+            seed=seed,
+            checkpoint_dir=checkpoint_dir,
+        )
+    elif name == "convnet":
+        # the C11-parity net (the reference's TF1 architecture spec,
+        # connect_four_net.py:20-100: conv3x3x512 stack + dense heads),
+        # trained end-to-end to back the parity claim with a run
+        from alphazero_tpu.models import AZConvNet
+
+        model = AZConvNet(num_actions=game.num_actions, channels=512)
+        cfg = AZConfig(
+            mcts=MCTSConfig(num_sims=50, max_depth=48, dirichlet_alpha=1.0),
+            selfplay=SelfPlayConfig(batch_size=1024, temp_threshold=15),
+            replay=ReplayConfig(capacity=1 << 18),
+            train=TrainConfig(batch_size=512, steps_per_iteration=256),
+            arena=ArenaConfig(
+                num_games=128,
+                update_threshold=0.55,
+                num_sims=25,
+                anchor_interval=3,
+            ),
+            num_iterations=10,
+            seed=seed,
+            checkpoint_dir=checkpoint_dir,
+        )
+    elif name == "economy":
+        # the measured training-economy recipe: the
+        # flagship resnet driven by the Gumbel engine at a small budget.
+        # Plain gumbel is the 8-seed paired-analysis winner (+174 peak /
+        # +179 final anchored Elo vs the PUCT baseline, t=2.7/2.1, at
+        # equal wall-clock); the earlier gumbel+PCR composition was
+        # re-measured at n=8 and dropped (PCR adds nothing on top —
+        # paired t=0.3; train_compare_cpu_seeds.json)
+        model = AZResNet(num_actions=game.num_actions, channels=64, blocks=5)
+        cfg = AZConfig(
+            mcts=MCTSConfig(
+                num_sims=32, max_depth=48, gumbel=True, dirichlet_alpha=None
+            ),
+            selfplay=SelfPlayConfig(
+                batch_size=4096,
+                temp_threshold=15,
+            ),
+            replay=ReplayConfig(capacity=1 << 20),
+            train=TrainConfig(batch_size=1024, steps_per_iteration=512),
+            arena=ArenaConfig(
+                num_games=256,
+                update_threshold=0.55,
+                num_sims=50,
+                anchor_interval=5,
+                # sharper anchored-Elo instrument (round-5): dense early
+                # passes with 4x anchor games while the anchor edge is
+                # still competitive, plus 2 pool-vs-pool cross matches
+                # per pass (the star graph's SE was +-204-330)
+                anchor_warmup=6,
+                anchor_warmup_mult=4,
+                pool_cross_matches=2,
+                # pure-MCTS rungs: generation 1 sweeps the base anchor
+                # outright (round-5 measurement), these give the gauge
+                # chain an informative first link
+                anchor_ladder=(400, 1600),
+            ),
+            num_iterations=50,
+            seed=seed,
+            checkpoint_dir=checkpoint_dir,
+            # economy extends to the run harness: the replay-bearing
+            # whole-state checkpoint (~hundreds of MB at 1<<20 capacity)
+            # is saved every 5 iterations (resume granularity stays 5
+            # iterations; the final state is always saved).
+            checkpoint_interval=5,
+            keep_checkpoints=4,
+        )
+    else:
+        # BASELINE config 3: conv resnet, batched self-play 4096 games.
+        # Adopted on a 2x2 factorial (seed-1 50-iteration arms at
+        # ±25-30 SE): episode recycling + a 2M packed ring —
+        # recycle alone shrank the replay window and LOST ~370 Elo at
+        # 1M capacity; with the window restored it matches/beats the
+        # fixed scan (2325±30 vs 2195±28 final) at +42% sample
+        # throughput for the same selfplay wall-clock.
+        model = AZResNet(num_actions=game.num_actions, channels=64, blocks=5)
+        cfg = AZConfig(
+            mcts=MCTSConfig(num_sims=100, max_depth=48, dirichlet_alpha=1.0),
+            selfplay=SelfPlayConfig(
+                batch_size=4096, temp_threshold=15, recycle=True
+            ),
+            replay=ReplayConfig(capacity=1 << 21),
+            train=TrainConfig(batch_size=1024, steps_per_iteration=512),
+            arena=ArenaConfig(
+                num_games=256,
+                update_threshold=0.55,
+                num_sims=50,
+                anchor_interval=5,
+                anchor_warmup=6,
+                anchor_warmup_mult=4,
+                pool_cross_matches=2,
+                anchor_ladder=(400, 1600),
+            ),
+            num_iterations=50,
+            seed=seed,
+            checkpoint_dir=checkpoint_dir,
+        )
+
+    return game, model, cfg
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument(
@@ -84,156 +232,16 @@ def main():
 
     import jax
 
+    from alphazero_tpu.utils.compile_cache import enable_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from alphazero_tpu.coach import Coach
-    from alphazero_tpu.config import (
-        ArenaConfig,
-        AZConfig,
-        MCTSConfig,
-        ReplayConfig,
-        SelfPlayConfig,
-        TrainConfig,
-    )
-    from alphazero_tpu.games import ConnectFour
-    from alphazero_tpu.models import AZResNet, MLPNet
 
-    game = ConnectFour()
-
-    if args.preset == "smoke":
-        model = MLPNet(num_actions=game.num_actions, hidden=(64,))
-        cfg = AZConfig(
-            mcts=MCTSConfig(num_sims=16, max_depth=24),
-            selfplay=SelfPlayConfig(batch_size=16, temp_threshold=15),
-            replay=ReplayConfig(capacity=1 << 14),
-            train=TrainConfig(batch_size=64, steps_per_iteration=16),
-            arena=ArenaConfig(num_games=16, update_threshold=0.55, num_sims=8),
-            num_iterations=3,
-            seed=args.seed,
-            checkpoint_dir=args.checkpoint_dir,
-        )
-    elif args.preset == "mlp":
-        # BASELINE config 2: tiny MLP, single-chip self-play + train loop
-        model = MLPNet(num_actions=game.num_actions, hidden=(256, 256))
-        cfg = AZConfig(
-            mcts=MCTSConfig(num_sims=50, max_depth=48),
-            selfplay=SelfPlayConfig(batch_size=512, temp_threshold=15),
-            replay=ReplayConfig(capacity=1 << 17),
-            train=TrainConfig(batch_size=512, steps_per_iteration=128),
-            arena=ArenaConfig(
-                num_games=128,
-                update_threshold=0.55,
-                num_sims=25,
-                anchor_interval=2,
-            ),
-            num_iterations=20,
-            seed=args.seed,
-            checkpoint_dir=args.checkpoint_dir,
-        )
-    elif args.preset == "convnet":
-        # the C11-parity net (the reference's TF1 architecture spec,
-        # connect_four_net.py:20-100: conv3x3x512 stack + dense heads),
-        # trained end-to-end to back the parity claim with a run
-        from alphazero_tpu.models import AZConvNet
-
-        model = AZConvNet(num_actions=game.num_actions, channels=512)
-        cfg = AZConfig(
-            mcts=MCTSConfig(num_sims=50, max_depth=48, dirichlet_alpha=1.0),
-            selfplay=SelfPlayConfig(batch_size=1024, temp_threshold=15),
-            replay=ReplayConfig(capacity=1 << 18),
-            train=TrainConfig(batch_size=512, steps_per_iteration=256),
-            arena=ArenaConfig(
-                num_games=128,
-                update_threshold=0.55,
-                num_sims=25,
-                anchor_interval=3,
-            ),
-            num_iterations=10,
-            seed=args.seed,
-            checkpoint_dir=args.checkpoint_dir,
-        )
-    elif args.preset == "economy":
-        # the measured training-economy recipe (docs/ROUND3.md): the
-        # flagship resnet driven by the Gumbel engine at a small budget.
-        # Plain gumbel is the 8-seed paired-analysis winner (+174 peak /
-        # +179 final anchored Elo vs the PUCT baseline, t=2.7/2.1, at
-        # equal wall-clock); the earlier gumbel+PCR composition was
-        # re-measured at n=8 and dropped (PCR adds nothing on top —
-        # paired t=0.3; train_compare_cpu_seeds.json)
-        model = AZResNet(num_actions=game.num_actions, channels=64, blocks=5)
-        cfg = AZConfig(
-            mcts=MCTSConfig(
-                num_sims=32, max_depth=48, gumbel=True, dirichlet_alpha=None
-            ),
-            selfplay=SelfPlayConfig(
-                batch_size=4096,
-                temp_threshold=15,
-            ),
-            replay=ReplayConfig(capacity=1 << 20),
-            train=TrainConfig(batch_size=1024, steps_per_iteration=512),
-            arena=ArenaConfig(
-                num_games=256,
-                update_threshold=0.55,
-                num_sims=50,
-                anchor_interval=5,
-                # sharper anchored-Elo instrument (round-5): dense early
-                # passes with 4x anchor games while the anchor edge is
-                # still competitive, plus 2 pool-vs-pool cross matches
-                # per pass (the star graph's SE was +-204-330)
-                anchor_warmup=6,
-                anchor_warmup_mult=4,
-                pool_cross_matches=2,
-                # pure-MCTS rungs: generation 1 sweeps the base anchor
-                # outright (round-5 measurement), these give the gauge
-                # chain an informative first link
-                anchor_ladder=(400, 1600),
-            ),
-            num_iterations=50,
-            seed=args.seed,
-            checkpoint_dir=args.checkpoint_dir,
-            # economy extends to the run harness: the replay-bearing
-            # whole-state checkpoint (~hundreds of MB at 1<<20 capacity)
-            # costs 35-186 s per save at this capacity (measured as ts
-            # gaps in resnet_economy_preset_50iter_gumbel32_tpu_v5e.jsonl)
-            # against a ~5 s iteration — amortize it (resume granularity
-            # stays 5 iterations; the final state is always saved). Even
-            # amortized it dominates true elapsed time; see the README's
-            # economy paragraph for the compute-vs-elapsed split.
-            checkpoint_interval=5,
-            keep_checkpoints=4,
-        )
-    else:
-        # BASELINE config 3: conv resnet, batched self-play 4096 games.
-        # Round-5 adoption (docs/ROUND5.md 2x2 factorial, seed-1 50-iter
-        # arms at ±25-30 SE): episode recycling + a 2M packed ring —
-        # recycle alone shrank the replay window and LOST ~370 Elo at
-        # 1M capacity; with the window restored it matches/beats the
-        # fixed scan (2325±30 vs 2195±28 final) at +42% sample
-        # throughput for the same selfplay wall-clock.
-        model = AZResNet(num_actions=game.num_actions, channels=64, blocks=5)
-        cfg = AZConfig(
-            mcts=MCTSConfig(num_sims=100, max_depth=48, dirichlet_alpha=1.0),
-            selfplay=SelfPlayConfig(
-                batch_size=4096, temp_threshold=15, recycle=True
-            ),
-            replay=ReplayConfig(capacity=1 << 21),
-            train=TrainConfig(batch_size=1024, steps_per_iteration=512),
-            arena=ArenaConfig(
-                num_games=256,
-                update_threshold=0.55,
-                num_sims=50,
-                anchor_interval=5,
-                anchor_warmup=6,
-                anchor_warmup_mult=4,
-                pool_cross_matches=2,
-                anchor_ladder=(400, 1600),
-            ),
-            num_iterations=50,
-            seed=args.seed,
-            checkpoint_dir=args.checkpoint_dir,
-        )
+    game, model, cfg = build_preset(args.preset, args.seed, args.checkpoint_dir)
 
     if args.replay_stride is not None:
         import dataclasses
@@ -270,7 +278,6 @@ def main():
                 gumbel=True,
                 num_sims=args.gumbel,
                 dirichlet_alpha=None,  # exploration comes from the Gumbel sample
-                parallel_sims=1,
             ),
         )
 

@@ -3,9 +3,8 @@
 
 Beyond the reference's scope (its only game is Connect-Four): Gomoku
 pairs a LARGE free-placement action space (81) with a zero depth-cutoff
-heuristic, so on TPU self-play runs on the hybrid descend/merge-kernel
-engine's dense-refresh path (mcts/hybrid.py) with 8-fold dihedral
-symmetry augmentation feeding the replay. Everything else — coach,
+heuristic, with 8-fold dihedral symmetry augmentation feeding the
+replay. Everything else — coach,
 replay, learner, arena, anchored Elo, checkpoints — is the same
 machinery as the other games.
 
@@ -68,6 +67,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from alphazero_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from alphazero_tpu.coach import Coach
@@ -142,7 +144,6 @@ def main():
                 gumbel=True,
                 num_sims=args.gumbel,
                 dirichlet_alpha=None,  # exploration comes from the Gumbel sample
-                parallel_sims=1,
             ),
         )
 

@@ -4,10 +4,8 @@
 Beyond the reference's scope (its only game is Connect-Four): Hex is a
 CONNECTION game — the win check is graph reachability (an on-device
 flood fill, games/hex.py) and the players' asymmetric goals are
-reconciled by a transpose-negate canonical form. On TPU self-play rides
-the hybrid Pallas engine via ``HexFlatOps`` (parity-lane storage keeps
-the kernel to dense arithmetic; the flood-fill terminal runs in the
-engine's XLA stage) — or the Gumbel engine with ``--gumbel``. Everything
+reconciled by a transpose-negate canonical form. Self-play runs on the
+XLA search engine — or the Gumbel engine with ``--gumbel``. Everything
 else — coach, replay, learner, arena, anchored Elo, checkpoints — is
 the same machinery as the other games.
 
@@ -55,6 +53,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from alphazero_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from alphazero_tpu.coach import Coach
@@ -129,7 +130,6 @@ def main():
                 gumbel=True,
                 num_sims=args.gumbel,
                 dirichlet_alpha=None,  # exploration comes from the Gumbel sample
-                parallel_sims=1,
             ),
         )
 

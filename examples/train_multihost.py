@@ -3,7 +3,7 @@
 
 Runs the SAME Coach program on every host under multi-controller JAX; the
 device mesh spans all hosts and XLA's collectives carry the learner's
-gradient psum over ICI/DCN. This replaces the reference's in-process
+gradient psum across devices and hosts. This replaces the reference's in-process
 transport (crossbeam channels between search threads and the inference
 service, reference: src/async_mcts.rs:22-23, 117-189) with
 ``jax.distributed`` — there is no hand-written messaging.

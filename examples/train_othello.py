@@ -5,10 +5,9 @@ config 4).
 Exercises the generic game protocol end-to-end (the role the reference's
 ``Game`` trait plays, src/game.rs:8-28) on a game with a large action
 space (65), pass moves, dihedral symmetry augmentation (8x) and a nonzero
-depth-cutoff heuristic. On TPU the search runs on the hybrid
-descend/merge-kernel engine (mcts/hybrid.py — the engine ladder in
-selfplay.py picks it for any model on flat-ops games); everything else — coach, replay, learner, arena, Elo,
-checkpoints — is the same machinery as Connect-Four.
+depth-cutoff heuristic. Everything else — search, coach, replay,
+learner, arena, Elo, checkpoints — is the same machinery as
+Connect-Four.
 
 Usage:
   python examples/train_othello.py                  # smoke run
@@ -37,8 +36,7 @@ def main():
         help="AZResNet tower width for --preset full. Default 128 by the "
         "round-5 Elo-per-wall-clock A/B: at equal wall-clock the 128-wide "
         "tower reached 2542+-165 anchored Elo vs 1372+-43 for 64-wide "
-        "(Othello is capacity-bound where connect-four is saturated); it "
-        "also runs the MXU at 68.7%% of peak vs 52.8%% (docs/ENGINES.md)",
+        "(Othello is capacity-bound where connect-four is saturated)",
     )
     ap.add_argument(
         "--blocks", type=int, default=5, help="AZResNet depth for --preset full"
@@ -66,6 +64,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from alphazero_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from alphazero_tpu.coach import Coach
@@ -117,7 +118,7 @@ def main():
             channels=args.channels,
             blocks=args.blocks,
         )
-        # CONTINUOUS (AlphaZero-2017) mode: measured on v5e, a gated run
+        # CONTINUOUS (AlphaZero-2017) mode: measured, a gated run
         # deadlocks at generation 0 — the random-init ResNet's BN washes
         # its priors to near-uniform, so the incumbent plays essentially
         # pure 50-sim MCTS, which early sharp-prior candidates lose to
@@ -135,7 +136,7 @@ def main():
                 update_threshold=None,
                 num_sims=50,
                 anchor_interval=5,
-                # round-5 instrument (docs/ROUND5.md): dense early passes
+                # the sharpened instrument: dense early passes
                 # + pure-MCTS rungs keep anchored SE tight enough to
                 # resolve preset-level comparisons
                 anchor_warmup=3,
@@ -164,7 +165,6 @@ def main():
                 gumbel=True,
                 num_sims=args.gumbel,
                 dirichlet_alpha=None,  # exploration comes from the Gumbel sample
-                parallel_sims=1,
             ),
         )
 

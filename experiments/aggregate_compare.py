@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Aggregate per-seed train_compare artifacts into the seed table.
 
-Replaces the ad-hoc round-3 aggregation with a committed, rerunnable
-script: reads every per-seed ``train_compare`` output, computes per-arm
-means and seed-PAIRED differences vs the baseline arm (the authoritative
-analysis — docs/ROUND3.md "Training-economy table"), and writes the
-aggregate JSON.
+A committed, rerunnable aggregation: reads every per-seed
+``train_compare`` output, computes per-arm means and seed-PAIRED
+differences vs the baseline arm (the authoritative analysis), and writes
+the aggregate JSON.
 
 Arms re-measured later under a CHANGED implementation are merged as
 DISTINCT arm names via ``--extra`` (e.g. the round-4 per-game

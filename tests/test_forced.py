@@ -18,7 +18,7 @@ from alphazero_tpu.config import MCTSConfig, SelfPlayConfig
 from alphazero_tpu.games import ConnectFour
 from alphazero_tpu.mcts.search import make_search_fn, pruned_root_counts
 from alphazero_tpu.mcts.tree import PLANE_N, PLANE_P, PLANE_W, Tree
-from alphazero_tpu.models import MLPNet, init_flax_model, make_flax_apply_fn, make_uniform_model
+from alphazero_tpu.models import MLPNet, init_model, make_apply_fn, make_uniform_model
 from alphazero_tpu.selfplay import make_selfplay_fn
 
 
@@ -28,8 +28,8 @@ A = G.num_actions
 
 def _mlp():
     model = MLPNet(num_actions=A, hidden=(16,))
-    variables = init_flax_model(model, jax.random.key(3), G.feature_shape)
-    return make_flax_apply_fn(model), variables
+    variables = init_model(model, jax.random.key(3), G.feature_shape)
+    return make_apply_fn(model), variables
 
 
 def _root_tree(n, w, p):

@@ -1,7 +1,6 @@
-"""Gomoku 9x9 (third game) — rules goldens, flat-ops equivalence, engine
-parity. Exercises the protocol corner no other game covers: large action
-space (81) + free placement + zero cutoff heuristic (the config that
-must route to the hybrid engine, never the fused kernel)."""
+"""Gomoku 9x9 (third game) — rules goldens and search behaviour.
+Exercises the protocol corner no other game covers: large action space
+(81) + free placement + zero cutoff heuristic."""
 
 import jax
 import jax.numpy as jnp
@@ -11,12 +10,11 @@ import pytest
 from alphazero_tpu.config import MCTSConfig, SelfPlayConfig
 from alphazero_tpu.games import Gomoku
 from alphazero_tpu.games.gomoku import SIZE
-from alphazero_tpu.mcts.hybrid import make_hybrid_root_fn
 from alphazero_tpu.mcts.search import make_search_fn
 from alphazero_tpu.models import (
     MLPNet,
-    init_flax_model,
-    make_flax_apply_fn,
+    init_model,
+    make_apply_fn,
     make_uniform_model,
 )
 
@@ -117,91 +115,7 @@ def _random_positions(B, moves, seed):
     return state
 
 
-class TestFlatOps:
-    def test_flat_step_matches_game_step(self):
-        ops = G.flat_ops()
-        state = _random_positions(8, 11, seed=3)
-        boards = ops.from_state(state)
-        for a in range(0, G.num_actions, 7):  # sampled actions incl. corners
-            acts = jnp.full((8,), a, jnp.int32)
-            ref = jax.vmap(G.step)(state, acts).board
-            flat = ops.step(boards, jnp.full((8, 1), float(a)))
-            np.testing.assert_array_equal(
-                np.asarray(ref).reshape(8, -1), np.asarray(flat).astype(np.int8)
-            )
-
-    def test_flat_terminal_matches_game_terminal(self):
-        ops = G.flat_ops()
-        aux = ops.aux()
-        # random NON-terminal positions + explicit won boards (the random
-        # generator keeps the pre-terminal state by construction)
-        state = _random_positions(32, 30, seed=5)
-        win_seq = [rc(4, 2), rc(0, 0), rc(4, 3), rc(0, 1), rc(4, 4),
-                   rc(0, 2), rc(4, 5), rc(0, 3), rc(4, 6)]
-        won = play(win_seq)
-        state = jax.tree_util.tree_map(
-            lambda a, b: jnp.concatenate([a, b[None]]), state, won
-        )
-        done_ref, val_ref = jax.vmap(G.terminal)(state)
-        boards = ops.from_state(state)
-        done_f, val_f = ops.terminal(boards, aux)
-        np.testing.assert_array_equal(
-            np.asarray(done_ref), np.asarray(done_f)[:, 0]
-        )
-        np.testing.assert_array_equal(
-            np.asarray(val_ref), np.asarray(val_f)[:, 0]
-        )
-        assert bool(np.asarray(done_ref)[-1]) and np.asarray(val_ref)[-1] == -1.0
-
-    def test_flat_valid_and_features_match(self):
-        ops = G.flat_ops()
-        state = _random_positions(8, 9, seed=7)
-        boards = ops.from_state(state)
-        np.testing.assert_array_equal(
-            np.asarray(jax.vmap(G.valid_moves)(state)),
-            np.asarray(ops.valid(boards)),
-        )
-        np.testing.assert_array_equal(
-            np.asarray(jax.vmap(G.to_features)(state)),
-            np.asarray(ops.to_features(boards)),
-        )
-
-
 class TestEngines:
-    def test_fused_declines_large_action_space(self):
-        from alphazero_tpu.mcts.fused import make_fused_root_fn
-
-        net = make_uniform_model(G)
-        cfg = MCTSConfig(num_sims=8, max_depth=16)
-        assert make_fused_root_fn(G, net.apply_fn, cfg, block_size=4) is None
-
-    @pytest.mark.parametrize("moves", [0, 10])
-    def test_hybrid_uniform_matches_xla_engine(self, moves):
-        net = make_uniform_model(G)
-        cfg = MCTSConfig(num_sims=12, max_depth=32)
-        search = make_search_fn(G, net.apply_fn, cfg)
-        hybrid = make_hybrid_root_fn(G, net.apply_fn, cfg, block_size=4)
-        assert hybrid is not None
-        state = _random_positions(4, moves, seed=moves)
-        np.testing.assert_array_equal(
-            np.asarray(search({}, state).root_counts()),
-            np.asarray(hybrid({}, state)),
-        )
-
-    def test_hybrid_mlp_matches_xla_engine(self):
-        model = MLPNet(num_actions=G.num_actions, hidden=(32,))
-        apply_fn = make_flax_apply_fn(model)
-        params = init_flax_model(model, jax.random.key(1), G.feature_shape)
-        cfg = MCTSConfig(num_sims=10, max_depth=32)
-        search = make_search_fn(G, apply_fn, cfg)
-        hybrid = make_hybrid_root_fn(G, apply_fn, cfg, block_size=4)
-        assert hybrid is not None
-        state = _random_positions(4, 6, seed=9)
-        np.testing.assert_array_equal(
-            np.asarray(search(params, state).root_counts()),
-            np.asarray(hybrid(params, state)),
-        )
-
     def test_search_finds_open_four_completion(self):
         """Player to move has an open four: the search must complete it."""
         moves = []
@@ -243,7 +157,7 @@ def test_selfplay_smoke():
 
 class TestProductionSize15:
     """Gomoku(15): the production-board edition (A=225) — the scale test
-    for the dense-plane engine bet (round-4 VERDICT item 1). Dynamics
+    for the dense-plane engine bet. Dynamics
     code is shared with the 9x9 edition; these tests pin the shapes and
     the flat-ops/engine parity at the larger action space."""
 
@@ -270,13 +184,6 @@ class TestProductionSize15:
         assert G15.num_actions == 225
         assert G15.feature_shape == (15, 15, 2)
         assert G15.name == "gomoku15"
-        ops = G15.flat_ops()
-        assert ops.size == 225
-        # 2*15*11 + 2*11^2 = 572 win lines, padded to the lane multiple
-        assert ops.aux_lanes == 640
-        m = np.asarray(ops.aux())
-        assert m.shape == (225, 640)
-        assert m.sum() == 572 * 5  # every line covers win=5 cells
 
     def test_win_requires_five_at_15(self):
         G15 = self.G15
@@ -293,46 +200,6 @@ class TestProductionSize15:
         s3 = G15.step(s2, jnp.asarray(7 * 15 + 7))
         done, v = G15.terminal(s3)
         assert bool(done) and float(v) == -1.0
-
-    def test_flat_ops_match_dense_at_15(self):
-        G15 = self.G15
-        ops = G15.flat_ops()
-        aux = ops.aux()
-        state = self._positions15(16, 40, seed=15)
-        boards = ops.from_state(state)
-        done_ref, val_ref = jax.vmap(G15.terminal)(state)
-        done_f, val_f = ops.terminal(boards, aux)
-        np.testing.assert_array_equal(
-            np.asarray(done_ref), np.asarray(done_f)[:, 0]
-        )
-        np.testing.assert_array_equal(
-            np.asarray(val_ref), np.asarray(val_f)[:, 0]
-        )
-        np.testing.assert_array_equal(
-            np.asarray(jax.vmap(G15.valid_moves)(state)),
-            np.asarray(ops.valid(boards)),
-        )
-        for a in (0, 112, 224):
-            acts = jnp.full((16,), a, jnp.int32)
-            ref = jax.vmap(G15.step)(state, acts).board
-            flat = ops.step(boards, jnp.full((16, 1), float(a)))
-            np.testing.assert_array_equal(
-                np.asarray(ref).reshape(16, -1),
-                np.asarray(flat).astype(np.int8),
-            )
-
-    def test_hybrid_matches_xla_engine_at_15(self):
-        G15 = self.G15
-        net = make_uniform_model(G15)
-        cfg = MCTSConfig(num_sims=10, max_depth=32)
-        search = make_search_fn(G15, net.apply_fn, cfg)
-        hybrid = make_hybrid_root_fn(G15, net.apply_fn, cfg, block_size=4)
-        assert hybrid is not None
-        state = self._positions15(4, 8, seed=21)
-        np.testing.assert_array_equal(
-            np.asarray(search({}, state).root_counts()),
-            np.asarray(hybrid({}, state)),
-        )
 
     def test_editions_are_independent(self):
         """A 9x9 and a 15x15 instance coexist (no shared module state)."""

@@ -238,10 +238,6 @@ def test_mutual_exclusions():
             G, NET.apply_fn, MCTSConfig(gumbel=True, dirichlet_alpha=0.3)
         )
     with pytest.raises(ValueError):
-        make_gumbel_search_fn(
-            G, NET.apply_fn, MCTSConfig(gumbel=True, parallel_sims=4)
-        )
-    with pytest.raises(ValueError):
         make_selfplay_fn(
             G,
             NET.apply_fn,

@@ -194,65 +194,3 @@ class TestSearch:
         )
         traj, stats = sp({}, jax.random.key(1))
         assert np.asarray(stats.done).all()
-
-
-class TestFlatOps:
-    """HexFlatOps (the hybrid engine's kernel-side dynamics) vs the
-    canonical game methods: the parity-lane step must track the
-    negate-AND-TRANSPOSE canonical form exactly through whole games."""
-
-    def test_step_sequence_matches_canonical(self):
-        from alphazero_tpu.games.hex import HexFlatOps
-
-        ops = HexFlatOps()
-        B = 16
-        rng = np.random.default_rng(7)
-        state = jax.vmap(lambda _: G.init())(jnp.arange(B))
-        flat = ops.from_state(state)
-        step_v = jax.jit(jax.vmap(G.step))
-        flat_step = jax.jit(ops.step)
-        for t in range(20):
-            vm = np.array(jax.vmap(G.valid_moves)(state))
-            acts = np.array(
-                [rng.choice(np.nonzero(v)[0]) for v in vm], np.float32
-            )
-            state = step_v(state, jnp.asarray(acts, jnp.int32))
-            flat = flat_step(flat, jnp.asarray(acts)[:, None])
-            # stored frame reconstructs the canonical board exactly
-            np.testing.assert_array_equal(
-                np.array(ops._canonical(flat).board), np.array(state.board)
-            )
-            # parity lane tracks depth mod 2
-            assert (np.array(flat[:, SIZE * SIZE]) == (t + 1) % 2).all()
-            # XLA-stage views agree with the game methods
-            np.testing.assert_array_equal(
-                np.array(ops.valid(flat)),
-                np.array(jax.vmap(G.valid_moves)(state)),
-            )
-            done_f, val_f = ops.terminal(flat, ops.aux())
-            done_g, val_g = jax.vmap(G.terminal)(state)
-            np.testing.assert_array_equal(
-                np.array(done_f[:, 0]), np.array(done_g)
-            )
-            np.testing.assert_array_equal(
-                np.array(val_f[:, 0]), np.array(val_g)
-            )
-            np.testing.assert_array_equal(
-                np.array(ops.to_features(flat)),
-                np.array(jax.vmap(G.to_features)(state)),
-            )
-
-    def test_overwrite_semantics_match(self):
-        """Hex.step overwrites occupied cells (callers mask illegal
-        actions); the flat step must degrade identically."""
-        from alphazero_tpu.games.hex import HexFlatOps
-
-        ops = HexFlatOps()
-        state = jax.vmap(lambda _: G.init())(jnp.arange(1))
-        flat = ops.from_state(state)
-        for a in (10, 10, 24, 10):  # repeat occupied cells
-            state = jax.vmap(G.step)(state, jnp.asarray([a]))
-            flat = ops.step(flat, jnp.asarray([[float(a)]]))
-        np.testing.assert_array_equal(
-            np.array(ops._canonical(flat).board), np.array(state.board)
-        )

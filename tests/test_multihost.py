@@ -9,7 +9,7 @@ Coach run of the identical config exactly — the multi-host claim
 artifact.
 
 Replaces nothing in the reference (it is single-process by design,
-src/async_mcts.rs:117-189 channels); this is the TPU-native scale-out
+src/async_mcts.rs:117-189 channels); this is the multi-controller scale-out
 path those channels map to.
 """
 
@@ -72,7 +72,7 @@ def test_two_process_coach_matches_single_process(tmp_path):
     assert got["loss_first"] == pytest.approx(ref["loss_first"], abs=1e-6)
     assert got["loss_last"] == pytest.approx(ref["loss_last"], abs=1e-6)
 
-    # the pair wrote a real (multiprocess Orbax) checkpoint...
+    # the pair wrote a real (multiprocess) checkpoint...
     from alphazero_tpu.checkpoint import latest_step
 
     assert latest_step(ckpt) == 1

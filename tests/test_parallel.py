@@ -172,44 +172,9 @@ def test_mesh_coach_matches_unsharded():
     np.testing.assert_allclose(a["loss_last"], b["loss_last"], atol=1e-5)
 
 
-def test_fused_kernel_sharded_matches_unsharded():
-    """Pallas engines ride a sharded jit via shard_map: per-shard kernel
-    runs must reproduce the single-device counts exactly."""
-    from alphazero_tpu.mcts.fused import make_fused_root_fn
-
-    net = make_uniform_model(G)
-    cfg = MCTSConfig(num_sims=12, max_depth=16)
-    state = jax.vmap(lambda _: G.init())(jnp.arange(16))
-    plain = make_fused_root_fn(G, net.apply_fn, cfg, block_size=2)
-    sharded = make_fused_root_fn(
-        G, net.apply_fn, cfg, block_size=2, mesh=make_mesh()
-    )
-    c_plain = np.asarray(jax.jit(plain)({}, state))
-    c_shard = np.asarray(jax.jit(sharded)({}, state))
-    np.testing.assert_array_equal(c_plain, c_shard)
-
-
-def test_hybrid_engine_sharded_matches_unsharded():
-    from alphazero_tpu.mcts.hybrid import make_hybrid_root_fn
-    from alphazero_tpu.models import MLPNet, init_flax_model, make_flax_apply_fn
-
-    model = MLPNet(num_actions=G.num_actions, hidden=(16,))
-    apply_fn = make_flax_apply_fn(model)
-    params = init_flax_model(model, jax.random.key(0), G.feature_shape)
-    cfg = MCTSConfig(num_sims=10, max_depth=16)
-    state = jax.vmap(lambda _: G.init())(jnp.arange(16))
-    plain = make_hybrid_root_fn(G, apply_fn, cfg, block_size=2)
-    sharded = make_hybrid_root_fn(
-        G, apply_fn, cfg, block_size=2, mesh=make_mesh()
-    )
-    c_plain = np.asarray(jax.jit(plain)(params, state))
-    c_shard = np.asarray(jax.jit(sharded)(params, state))
-    np.testing.assert_array_equal(c_plain, c_shard)
-
-
 def test_mesh_checkpoint_resume_preserves_shardings(tmp_path):
     """Sharded save -> sharded restore: every leaf comes back on the mesh
-    placement __init__ chose (committed-template shardings drive the Orbax
+    placement __init__ chose (committed-template shardings drive the
     restore; no host-side restore + silent replication)."""
     from alphazero_tpu.coach import Coach
     from alphazero_tpu.config import ArenaConfig, AZConfig

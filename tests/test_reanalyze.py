@@ -107,7 +107,7 @@ class TestPositionStore:
 
     def test_age_metric(self):
         """age_mean reports how stale the refreshed targets are, in coach
-        iterations — the metric VERDICT r3 asked for (a value pinned near
+        iterations (a value pinned near
         0 means the ring wraps within an iteration)."""
         net = make_uniform_model(G)
         rz = make_reanalyze_fn(

@@ -143,13 +143,13 @@ def test_azconvnet_reference_architecture_trains():
     (connect_four_net.py:20-112 — 4x conv3x3 SAME/SAME/VALID/VALID + BN +
     dense 1024/512 + dropout + pi/v heads): forward shapes, dropout rng
     path and one finite train step."""
-    from alphazero_tpu.models import AZConvNet, make_flax_apply_fn
-    from alphazero_tpu.models.nets import init_flax_model
+    from alphazero_tpu.models import AZConvNet, make_apply_fn
+    from alphazero_tpu.models.nets import init_model
 
     game = ConnectFour()
     model = AZConvNet(num_actions=game.num_actions, channels=32)
-    variables = init_flax_model(model, jax.random.key(0), game.feature_shape)
-    apply_fn = make_flax_apply_fn(model)
+    variables = init_model(model, jax.random.key(0), game.feature_shape)
+    apply_fn = make_apply_fn(model)
     feats = jnp.zeros((4,) + game.feature_shape, jnp.float32)
     logits, v = apply_fn(variables, feats)
     assert logits.shape == (4, game.num_actions) and v.shape == (4,)

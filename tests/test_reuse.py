@@ -2,7 +2,7 @@
 
 The reference persists one AsyncMcts per episode so search statistics
 survive across moves (coach.rs:104-157, async_mcts.rs:81). These tests
-verify the TPU-native re-rooting against an independent numpy BFS
+verify the lockstep re-rooting against an independent numpy BFS
 subtree-extraction oracle, the continued search's budget accounting, and
 the self-play integration.
 """
@@ -19,8 +19,8 @@ from alphazero_tpu.mcts.search import make_search_fn
 from alphazero_tpu.mcts.tree import init_tree
 from alphazero_tpu.models import (
     MLPNet,
-    init_flax_model,
-    make_flax_apply_fn,
+    init_model,
+    make_apply_fn,
     make_uniform_model,
 )
 from alphazero_tpu.selfplay import make_selfplay_fn
@@ -152,8 +152,8 @@ def test_search_from_budget_and_cumulative_counts():
 
 def test_selfplay_with_tree_reuse_runs_and_is_deterministic():
     model = MLPNet(num_actions=G.num_actions, hidden=(16,))
-    apply_fn = make_flax_apply_fn(model)
-    params = init_flax_model(model, jax.random.key(0), G.feature_shape)
+    apply_fn = make_apply_fn(model)
+    params = init_model(model, jax.random.key(0), G.feature_shape)
     cfg = MCTSConfig(num_sims=12, max_depth=48, max_nodes=32, tree_reuse=True)
     sp = jax.jit(
         make_selfplay_fn(G, apply_fn, cfg, SelfPlayConfig(batch_size=8, temp_threshold=6))

@@ -114,7 +114,7 @@ def test_actor_step_recycles():
 
 
 class TestRecyclingSelfplay:
-    """make_recycling_selfplay_fn (round-4 VERDICT item 5): every search
+    """make_recycling_selfplay_fn: every search
     is a real env step; value targets resolve exactly, one call late at
     worst, via the fragment carry."""
 

@@ -25,8 +25,8 @@ from alphazero_tpu.mcts.search import make_search_fn
 from alphazero_tpu.mcts.tt import make_tt_search_fn
 from alphazero_tpu.models import (
     MLPNet,
-    init_flax_model,
-    make_flax_apply_fn,
+    init_model,
+    make_apply_fn,
     make_uniform_model,
 )
 from alphazero_tpu.selfplay import make_selfplay_fn
@@ -133,10 +133,10 @@ class TestEngineSemantics:
     def test_nn_model_runs_and_conserves_budget(self):
         game = ConnectFour()
         model = MLPNet(num_actions=game.num_actions, hidden=(32, 32))
-        variables = init_flax_model(
+        variables = init_model(
             model, jax.random.key(0), game.feature_shape
         )
-        apply_fn = make_flax_apply_fn(model)
+        apply_fn = make_apply_fn(model)
         cfg = MCTSConfig(num_sims=150, max_depth=48, transposition=True)
         search = jax.jit(make_tt_search_fn(game, apply_fn, cfg))
         root = jax.vmap(lambda _: game.init())(jnp.arange(4))
@@ -200,13 +200,6 @@ class TestEngineSemantics:
                     child = int(cd)
                     assert cd == child and child < count, f"corrupt code {cd}"
                     assert parity[child] == 1 - parity[c_slot]
-
-    def test_parallel_sims_rejected(self):
-        game = ConnectFour()
-        model = make_uniform_model(game)
-        cfg = MCTSConfig(num_sims=8, parallel_sims=4, transposition=True)
-        with pytest.raises(ValueError, match="K=1"):
-            make_tt_search_fn(game, model.apply_fn, cfg)
 
 
 class TestIntegration:
